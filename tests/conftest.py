@@ -28,3 +28,10 @@ jax.config.update("jax_platforms", "cpu")
 # source changes miss cleanly.
 jax.config.update("jax_compilation_cache_dir", "/tmp/jax_cache_cpu")
 jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card (the port's CUDA kernels); skips without one",
+    )
