@@ -1,15 +1,19 @@
 """androidrenderer_tpu_torch — the PyTorch + CUDA port of androidrenderer_tpu.
 
 The JAX package beside it is the reference. This package renders the raster-only
-frame (``config.raster_only_config``): frustum cull, triangle setup, the
-hand-written CUDA rasterizer (``csrc/raster.cu``), gbuffer resolve, sky, staggered
-cascaded shadow maps, sun BRDF, bloom and tonemap. It imports torch and numpy only.
+frame (``config.raster_only_config``) and the headless CLI's default frame
+(``config.default_frame_config``): frustum cull, two-phase HiZ occlusion culling,
+triangle setup, the hand-written CUDA rasterizer (``csrc/raster.cu``) behind the
+entry points of the JAX package's raster family, the exact alpha-test peel, gbuffer
+resolve, sky, staggered cascaded shadow maps, sun BRDF, the translucency peel,
+bloom and tonemap. It imports torch and numpy only.
 
-Entry points, as bench.py drives the JAX frame::
+Entry points, as bench.py drives the JAX frame; they run on the card unless the
+caller passes ``device="cpu"``::
 
-    scene, stats = courtyard_scene(...).build(device="cuda")
+    scene, stats = courtyard_scene(...).build()
     view = Camera(...).view_data()
-    temporal = temporal_state_for(cfg, device="cuda")
+    temporal = temporal_state_for(cfg)
     out, temporal = make_renderer(cfg)(scene, view, RenderParams.default(), temporal)
 """
 
@@ -21,11 +25,17 @@ import torch
 def init_device(device) -> torch.device:
     """Resolve ``device`` and pin float32 numerics on it.
 
+    A CUDA device without a card raises: nothing falls back to the CPU.
     TF32 is switched off for cuDNN convolutions and CUDA matmuls: the frame's
     float stages are held to the JAX reference at float32 tolerances, and TF32
     keeps only about three decimal digits."""
     dev = torch.device(device)
     if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} asked for, but torch.cuda.is_available() is false; "
+                "pass device='cpu' to run on the CPU"
+            )
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
     return dev

@@ -7,8 +7,10 @@ slab/unroll counts, tile sizes) are kept for that reason and ignored here.
 ``RenderParams`` holds the continuous parameters as plain Python floats: PyTorch
 runs eagerly, so there is no traced/static split to respect.
 
-The port renders one slice of the JAX frame, the raster-only frame
-(``raster_only_config``); ``render.frame`` rejects every other switch setting.
+The port renders the JAX frame with GI, AO and AA off: the bench's raster-only
+frame (``raster_only_config``) and the headless CLI's default frame at the
+bench's size (``default_frame_config``), with the exact alpha peel when
+``alpha_bitmap`` is off; ``render.frame`` rejects the switches it does not carry.
 """
 
 from __future__ import annotations
@@ -87,7 +89,8 @@ class RenderConfig:
     alpha_masking: bool = True
     alpha_peel_layers: int = 3
     # In-kernel alpha test from the baked 16x16 barycentric bitmaps
-    # (SceneArrays.tri_alpha_grid); the only alpha path the port has.
+    # (SceneArrays.tri_alpha_grid), evaluated on a per-triangle lattice; False
+    # takes the exact per-pixel peel (ops/raster/masked.py).
     alpha_bitmap: bool = True
     translucency: bool = True
     translucent_layers: int = 2
@@ -176,8 +179,8 @@ class RenderConfig:
 def raster_only_config(width: int = 1920, height: int = 1088, **overrides) -> RenderConfig:
     """The bench's raster-only frame (bench.py:85-129, then :192-195): the parity
     config with GI, AO and AA off, rendered at native resolution. The defaults
-    of ``RenderConfig`` turn on occlusion culling and translucency, which the
-    slice does not carry; this sets them off exactly as bench.py does."""
+    of ``RenderConfig`` turn on occlusion culling and translucency; this sets
+    them off exactly as bench.py does."""
     cfg = RenderConfig(
         render_width=width, render_height=height,
         output_width=width, output_height=height,
@@ -192,6 +195,17 @@ def raster_only_config(width: int = 1920, height: int = 1088, **overrides) -> Re
         shadow_update_budget=1,
     )
     return cfg.replace(**overrides)
+
+
+def default_frame_config(width: int = 1920, height: int = 1088, **overrides) -> RenderConfig:
+    """The headless CLI's default frame (app/headless.py:115-127) at the bench's
+    size: ``raster_only_config`` with the ``RenderConfig`` defaults the CLI keeps
+    on, two-phase HiZ occlusion culling (``hiz_levels=6``) and translucency
+    (``translucent_layers=2``), and the bench's ``shadow_update_budget=1``.
+    ``alpha_bitmap=False`` as an override gives the exact alpha-peel frame."""
+    return raster_only_config(
+        width, height, occlusion_culling=True, translucency=True
+    ).replace(**overrides)
 
 
 class RenderParams(NamedTuple):

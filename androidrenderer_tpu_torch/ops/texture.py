@@ -45,6 +45,24 @@ def _footprint(uv: torch.Tensor, size: torch.Tensor, sizef: torch.Tensor):
     return u, v, x0i, y0i, fx, fy
 
 
+def sample_bilinear(
+    pool: torch.Tensor,  # (R, >=16) u8 — rows carry the level's 2x2 wrap footprint
+    start: torch.Tensor,  # (...,) i32 per-sample texture start row
+    log2b: torch.Tensor,  # (...,) i32 per-sample log2(base size)
+    uv: torch.Tensor,  # (..., 2) f32, repeat-wrapped
+    level: torch.Tensor,  # (...,) i32 mip level (clamped per texture)
+) -> torch.Tensor:
+    """Bilinear sample at an integer mip level from ONE flat row gather:
+    (..., 4) f32 in [0, 1]. Repeat wrap is a bitwise AND (sizes are powers of
+    two); the level's rows start (4b^2 - 4s^2) // 3 into the entry."""
+    log2b = log2b.to(torch.int32)
+    level = torch.minimum(level.to(torch.int32).clamp(min=0), log2b)
+    size, sizef, mip_off = _level_geometry(log2b, level)
+    _, _, x0i, y0i, fx, fy = _footprint(uv, size, sizef)
+    taps = _fetch(pool, start + mip_off + y0i * size + x0i)
+    return _bilerp(taps[..., 0:4], taps[..., 4:8], taps[..., 8:12], taps[..., 12:16], fx, fy)
+
+
 class _Coarse:
     """Selection of the next level's 2x2 footprint inside a row's 3x3 blocks."""
 

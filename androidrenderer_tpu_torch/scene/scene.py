@@ -385,11 +385,13 @@ class RenderScene:
         return leaves, stats
 
     def build(
-        self, device="cpu", pad: int = 512, proxy_cell_size: float = 0.25
+        self, device="cuda", pad: int = 512, proxy_cell_size: float = 0.25
     ) -> Tuple[SceneArrays, dict]:
-        """Bake and upload: (SceneArrays on ``device``, stats)."""
+        """Bake and upload: (SceneArrays on ``device``, stats). The card unless
+        the caller asks for the CPU."""
+        dev = init_device(device)  # raises before the bake when there is no card
         leaves, stats = self.bake(pad=pad, proxy_cell_size=proxy_cell_size)
-        return scene_arrays_from_numpy(leaves, device), stats
+        return scene_arrays_from_numpy(leaves, dev), stats
 
 
 def scene_arrays_from_numpy(leaves: Dict[str, np.ndarray], device) -> SceneArrays:

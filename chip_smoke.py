@@ -21,7 +21,26 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 5. the same raster-only frame at 128^2 on the default courtyard, rendered on the
    card (kernel) and on the CPU (plain version), 3 chained frames: max |delta|
    of the u8 image and of the depth;
-6. one JSON line of kernel results, the card line, and the final JSON line.
+6. the raster family's entry points against the plain version at their call
+   sites' shapes on the bench scene, bit-equal, CUDA-event medians of 5:
+   rasterize_binned for the exact-alpha peel's layers 0 and 1 (1088x1920, the
+   masked triangles, layer 1 under the z_limit layer 0 leaves), rasterize for
+   the translucency peel's layer 1 (the blend triangles under layer 0's depth),
+   rasterize_fused and rasterize_pallas at the 1088x1920 main view, and
+   rasterize_hybrid at the 1024^2 cascade (depth_only + affine_z);
+7. the headless CLI's default frame (A, config.default_frame_config: two-phase
+   HiZ occlusion, alpha bitmaps, translucency) and its exact-alpha twin (B,
+   alpha_bitmap=False) at 1920x1088, timed as phase 4: raster launches must be
+   exactly 6 per frame for A (occlusion phases 1 and 2, 2 translucent layers,
+   cascade 0, one far cascade) and 9 for B (3 more, the peel's rasterize_binned);
+   after warm-up A's depth and visibility must equal A's without occlusion;
+8. A and B at 128^2, card against CPU, with phase 5's thresholds;
+9. one JSON line of kernel results (kernels #1-#4 of the raster family, each
+   with its bound), the card line, and the final JSON line.
+
+Launch counts are read per path: every entry point's count is set to 0 just
+before a path's frames and read just after, so the launches of the comparisons
+above never count.
 
 It needs torch with CUDA and the repository beside it; it imports no JAX.
 """
@@ -82,8 +101,65 @@ def bench_setup(device):
     return cfg, scene, cam.view_data()
 
 
+# The card's peaks for the bound (NVIDIA's H100 SXM data sheet: HBM3 rate, and
+# float32 outside the tensor cores).
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+
+
+def raster_bound(setup, height, width, depth_only=False, affine_z=False, z_limit=None,
+                 alpha_grid=None):
+    """(least ms the card could take for one raster call, "bytes" or "operations",
+    the counts as text),
+    from the work this call's data needs, counted by walking each live record's
+    clipped bbox as csrc/raster.cu does (the plain version's fragment walk).
+
+    Bytes, each input read once and each output written once: 96 B for each
+    live record (sid != 0 and a non-empty clipped bbox), 4 B (its sid) for each
+    dead one; 4 B of z_limit for each distinct pixel a fragment in depth range
+    tests; 4 B for each distinct alpha word a fragment tests; depth (f32) and
+    vis (i32) written for every pixel. The kernel's key buffer is scratch and
+    not counted. Operations, in float32: 12 per bbox pixel (3 edge planes of
+    2 mul + 2 add), per covered pixel the z (1 plane, 4, with affine_z; else 2
+    planes and a divide, 9), and 7 per alpha test (2 add, a divide, 4 mul)."""
+    import torch
+
+    from androidrenderer_tpu_torch.ops.raster import pack_fused_records
+    from androidrenderer_tpu_torch.ops.raster.raster import (
+        alpha_bit_index, patch_fragments, record_bboxes,
+    )
+
+    rec = pack_fused_records(setup, affine_z=affine_z)
+    n = rec.shape[0]
+    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width)
+    n_live = int(live.sum())
+    bbox_px = int(((bx1 - bx0 + 1) * (by1 - by0 + 1))[live].sum())
+    zl = None if z_limit is None else z_limit.reshape(-1)
+    zl_read = torch.zeros(height * width, dtype=torch.bool, device=rec.device)
+    words = torch.zeros(n * 8, dtype=torch.bool, device=rec.device)
+    covered = alpha_tests = 0
+    for tri, frag in patch_fragments(rec, height, width, affine_z):
+        covered += int(frag.covered.sum())
+        tested = frag.covered & (frag.z > 0.0) & (frag.z <= 1.0)
+        if zl is not None:
+            zl_read[frag.pix[tested]] = True
+            tested = tested & (frag.z < zl[frag.pix])
+        if alpha_grid is not None:
+            word = tri[:, None, None] * 8 + (alpha_bit_index(frag) >> 5)
+            words[word[tested]] = True
+            alpha_tests += int(tested.sum())
+    nbytes = (n_live * 96 + (n - n_live) * 4 + height * width * 4 * (1 if depth_only else 2)
+              + int(zl_read.sum()) * 4 + int(words.sum()) * 4)
+    ops = bbox_px * 12 + covered * (4 if affine_z else 9) + alpha_tests * 7
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    work = (f"{n_live} of {n} records live, {bbox_px} bbox pixels, {covered} covered, "
+            f"{alpha_tests} alpha tests; {nbytes / 1e6:.3f} MB = {t_bytes * 1e3:.2f} us, "
+            f"{ops / 1e6:.3f} M ops = {t_ops * 1e3:.2f} us")
+    return (t_bytes, "bytes", work) if t_bytes >= t_ops else (t_ops, "operations", work)
+
+
 def kernel_checks(cfg, scene, view):
-    """Phase 3: (result dict, ok) for the main view and one cascade."""
+    """Phase 3: (result dict, ok, cascade-0 setup) for the main view and one cascade."""
     import torch
 
     from androidrenderer_tpu_torch.ops import shadow as shadow_ops
@@ -130,6 +206,10 @@ def kernel_checks(cfg, scene, view):
     print(f"cascade 0 {res}^2 depth_only+affine_z: bit-equal={csm_eq} max|d depth|={csm_err} "
           f"covered={(dk > 0).float().mean().item():.4f} "
           f"kernel {csm_ms:.3f} ms, plain {csm_plain_ms:.3f} ms")
+    bound_ms, bound_by, work = raster_bound(opaque, h, w, alpha_grid=grid)
+    print(f"  main view bound {bound_ms * 1e3:.2f} us ({bound_by}): {work}")
+    csm_bound_ms, csm_bound_by, work = raster_bound(c0, res, res, depth_only=True, affine_z=True)
+    print(f"  cascade 0 bound {csm_bound_ms * 1e3:.2f} us ({csm_bound_by}): {work}")
     result = {
         "name": "raster",
         "route": "cuda",
@@ -138,30 +218,134 @@ def kernel_checks(cfg, scene, view):
         "max_abs_err": max(main_err, csm_err),
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,  # no single PyTorch call rasterizes
         "cascade_ms": csm_ms,
         "cascade_plain_ms": csm_plain_ms,
+        "cascade_bound_ms": csm_bound_ms,
     }
-    return result, main_eq and csm_eq and covered > 0.5
+    return result, main_eq and csm_eq and covered > 0.5, c0
 
 
-def run_slice(cfg, scene, view, profile: bool):
-    """Phase 4: (median ms/frame, raster launches in the run, frames, failed checks)."""
+def compare(label, fn, setup, height, width, **kw):
+    """Kernel (through entry point ``fn``) against the plain version on the same
+    inputs: (outputs, {eq, err, ms, plain_ms, bound_ms, bound_by})."""
+    import torch
+
+    from androidrenderer_tpu_torch.ops.raster import rasterize_reference
+
+    plain_kw = {k: v for k, v in kw.items() if k in ("depth_only", "affine_z", "z_limit",
+                                                     "alpha_grid")}
+    got = fn(setup, height, width, **kw)
+    want = rasterize_reference(setup, height, width, **plain_kw)
+    torch.cuda.synchronize()
+    got_t = got if isinstance(got, tuple) else (got,)
+    want_t = want if isinstance(want, tuple) else (want,)
+    eq = all(torch.equal(g, r) for g, r in zip(got_t, want_t))
+    err = (got_t[0] - want_t[0]).abs().max().item()
+    ms = cuda_ms(lambda: fn(setup, height, width, **kw))
+    plain_ms = cuda_ms(lambda: rasterize_reference(setup, height, width, **plain_kw))
+    bound_ms, bound_by, work = raster_bound(
+        setup, height, width, depth_only=kw.get("depth_only", False),
+        affine_z=kw.get("affine_z", False), z_limit=kw.get("z_limit"),
+        alpha_grid=kw.get("alpha_grid"),
+    )
+    live = int(setup.valid.sum())
+    print(f"{label} {height}x{width}, {live} live triangles: bit-equal={eq} "
+          f"max|d depth|={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {work})")
+    return got, dict(eq=eq, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by)
+
+
+def entry_point_checks(scene, view, width, height, cascade0, res):
+    """Phase 6: (results by entry point, ok)."""
+    import torch
+
+    from androidrenderer_tpu_torch.config import default_frame_config
+    from androidrenderer_tpu_torch.ops.raster.masked import _sample_alpha, pack_alpha_planes
+    from androidrenderer_tpu_torch.render.frame import main_view_setup
+
+    eps = entry_points()
+    cfg = default_frame_config(width, height, alpha_bitmap=False)
+    h, w = height, width
+    setup, opaque, _ = main_view_setup(scene, view, cfg)
+    inf = torch.full((h, w), float("inf"), device=scene.positions.device)
+    out, ok = {}, True
+
+    # The exact-alpha peel: layer 0, then layer 1 under the bound layer 0 leaves
+    # where the winning fragment failed its alpha test.
+    masked = setup._replace(valid=setup.valid & (scene.tri_alpha_mode == 1))
+    (d0, v0), r0 = compare("rasterize_binned peel layer 0", eps["rasterize_binned"],
+                           masked, h, w)
+    alpha, cutoff = _sample_alpha(scene, masked, v0, alpha_planes=pack_alpha_planes(scene, masked))
+    zl = torch.where((v0 >= 0) & ~(alpha >= cutoff), d0, inf)
+    (d1, v1), r1 = compare("rasterize_binned peel layer 1", eps["rasterize_binned"],
+                           masked, h, w, z_limit=zl)
+    peeled = torch.isfinite(zl)
+    readmitted = int((peeled & (v1 == v0)).sum())
+    print(f"  peel layer 1: {int(peeled.sum())} pixels under a z_limit, "
+          f"{readmitted} re-admit layer 0's triangle")
+    ok &= r0["eq"] and r1["eq"] and readmitted == 0 and int(peeled.sum()) > 0
+    out["rasterize_binned"] = dict(r0, err=max(r0["err"], r1["err"]), layer1_ms=r1["ms"],
+                                   layer1_plain_ms=r1["plain_ms"],
+                                   layer1_bound_ms=r1["bound_ms"])
+
+    # The translucency peel's layer 1 through rasterize (kernel #1 with z_limit).
+    blend = setup._replace(valid=setup.valid & (scene.tri_alpha_mode == 2))
+    (b0, bv0), _ = compare("rasterize translucency layer 0", eps["rasterize"], blend, h, w)
+    (b1, bv1), rb = compare("rasterize translucency layer 1", eps["rasterize"], blend, h, w,
+                            z_limit=torch.where(bv0 >= 0, b0, inf))
+    ok &= rb["eq"] and bool((bv0 >= 0).any())
+    out["rasterize"] = rb
+
+    for name in ("rasterize_fused", "rasterize_pallas"):
+        _, r = compare(f"{name} main view", eps[name], opaque, h, w)
+        ok &= r["eq"]
+        out[name] = r
+    _, r = compare("rasterize_hybrid cascade 0", eps["rasterize_hybrid"], cascade0, res, res,
+                   depth_only=True, affine_z=True)
+    ok &= r["eq"]
+    out["rasterize_hybrid"] = r
+    return out, ok
+
+
+def entry_points():
+    """The raster family's entry points by name; each counts its own launches."""
+    from androidrenderer_tpu_torch.ops.raster import rasterize
+    from androidrenderer_tpu_torch.ops.raster.raster_binned import rasterize_binned
+    from androidrenderer_tpu_torch.ops.raster.raster_fused import (
+        rasterize_fused, rasterize_hybrid,
+    )
+    from androidrenderer_tpu_torch.ops.raster.raster_pallas import rasterize_pallas
+
+    return {f.__name__: f for f in (
+        rasterize, rasterize_binned, rasterize_fused, rasterize_hybrid, rasterize_pallas)}
+
+
+def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
+    """Phases 4 and 7: (median ms/frame, launches by entry point, frames, failed
+    checks, last outputs, temporal state). ``per_frame`` is the launches each
+    entry point must make per frame; every other entry point must make none."""
     import numpy as np
     import torch
 
     from androidrenderer_tpu_torch.config import RenderParams
-    from androidrenderer_tpu_torch.ops.raster import rasterize
     from androidrenderer_tpu_torch.ops.raster.raster import BUILD_DIR
     from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
 
     renderer = make_renderer(cfg)
     params = RenderParams.default()
     temp = temporal_state_for(cfg, device=scene.positions.device)
-    rasterize.launches = 0
+    eps = entry_points()
+    for f in eps.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out, temp = renderer(scene, view, params, temp)
     torch.cuda.synchronize()
-    print(f"first frame: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    print(f"{label} first frame: {(time.perf_counter() - t0) * 1e3:.1f} ms")
     for _ in range(2):
         out, temp = renderer(scene, view, params, temp)
     torch.cuda.synchronize()
@@ -172,13 +356,16 @@ def run_slice(cfg, scene, view, profile: bool):
             out, temp = renderer(scene, view, params, temp)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / chain)
-    launches, frames = rasterize.launches, 3 + 4 * chain
+    launches = {name: f.launches for name, f in eps.items()}
+    frames = 3 + 4 * chain
+    total = sum(launches.values())
     ms = float(np.median(times))
-    print(f"raster-only {cfg.render_width}x{cfg.render_height} chained frame times (ms): "
+    print(f"{label} {cfg.render_width}x{cfg.render_height} chained frame times (ms): "
           f"{[round(t, 3) for t in times]}; median {ms:.3f} ms/frame")
-    print(f"raster launches: {launches} over {frames} frames = {launches / frames} per frame")
+    print(f"{label} raster launches: {total} over {frames} frames = {total / frames} per frame "
+          f"({', '.join(f'{k} {v}' for k, v in launches.items() if v)})")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"peak device memory: {peak:.2f} GiB")
+    print(f"{label} peak device memory: {peak:.2f} GiB")
 
     img = out.image
     problems = []
@@ -188,9 +375,10 @@ def run_slice(cfg, scene, view, profile: bool):
         problems.append("HDR has non-finite values")
     if int(img.amax()) == int(img.amin()):
         problems.append("image is uniform")
-    if launches != 3 * frames:
-        problems.append(f"raster launches {launches} != 3 x {frames} frames")
-    print(f"image: mean {img.float().mean().item():.3f}, min {int(img.amin())}, "
+    for name, n in launches.items():
+        if n != per_frame.get(name, 0) * frames:
+            problems.append(f"{name} launches {n} != {per_frame.get(name, 0)} x {frames} frames")
+    print(f"{label} image: mean {img.float().mean().item():.3f}, min {int(img.amin())}, "
           f"max {int(img.amax())}; pixels covered {(out.visibility >= 0).float().mean().item():.4f}")
 
     if profile:
@@ -216,21 +404,22 @@ def run_slice(cfg, scene, view, profile: bool):
                    and not e.key.startswith("frame/")]
         busy_ms = sum(device_us(e, False) for e in kernels) / 1e3 / 3
         table = events.table(sort_by="cuda_time_total", row_limit=80)
-        dest = BUILD_DIR / "torch_frame_profile.txt"
+        dest = BUILD_DIR / f"torch_frame_profile_{label.replace(' ', '_')}.txt"
         dest.parent.mkdir(parents=True, exist_ok=True)
         dest.write_text(table)
-        print(f"profile of 3 frames written to {dest.relative_to(REPO)}")
-        print(f"profiled frame: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        print(f"{label} profile of 3 frames written to {dest.relative_to(REPO)}")
+        print(f"{label} profiled frame: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
               f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in kernels) / 3:.0f} kernels")
         for e in sorted(events, key=lambda e: -e.cpu_time_total):
             if e.key.startswith("frame/") and e.cpu_time_total > 0:
                 print(f"  {e.key:18s} host {e.cpu_time_total / 1e3 / 3:8.3f} ms, "
                       f"kernels {device_us(e, True) / 1e3 / 3:8.3f} ms per frame")
-    return ms, launches, frames, problems
+    return ms, launches, frames, problems, out, temp
 
 
-def card_vs_cpu():
-    """Phase 5: the 128^2 courtyard frame on the card and on the CPU."""
+def card_vs_cpu(label="raster-only", overrides=None, curtains=False):
+    """Phases 5 and 8: a 128^2 courtyard frame on the card and on the CPU.
+    ``overrides`` (RenderConfig fields) turn the raster-only config into A or B."""
     import numpy as np
     import torch
 
@@ -240,13 +429,13 @@ def card_vs_cpu():
     from androidrenderer_tpu_torch.scene.procedural import courtyard_scene
 
     n = 128
-    cfg = raster_only_config(n, n, shadow_cascade_resolution=128)
+    cfg = raster_only_config(n, n, shadow_cascade_resolution=128, **(overrides or {}))
     cam = Camera(fov_degrees=cfg.fov_degrees, aspect=1.0, z_near=cfg.z_near,
                  render_resolution=(n, n))
     cam.set_position([0.0, 1.7, 6.0])
     cam.pitch, cam.yaw = -0.05, np.pi
     view = cam.view_data()
-    leaves, _ = courtyard_scene().bake()
+    leaves, _ = courtyard_scene(curtains=curtains).bake()
     from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
 
     outs = {}
@@ -264,7 +453,7 @@ def card_vs_cpu():
     far = max(float((np.abs(a[0].astype(int) - b[0].astype(int)) > 1).mean()) for a, b in pairs)
     dep_d = max(float(np.abs(a[1] - b[1]).max()) for a, b in pairs)
     dep_share = max(float((a[1] != b[1]).mean()) for a, b in pairs)
-    print(f"card vs CPU, 128^2 courtyard, 3 frames: max|d image|={img_d} "
+    print(f"card vs CPU, {label} 128^2 courtyard, 3 frames: max|d image|={img_d} "
           f"(share > 1 step {far:.5f}), max|d depth|={dep_d} (share differing {dep_share:.5f})")
     return far <= 0.005 and dep_share <= 0.005
 
@@ -299,25 +488,91 @@ def main(argv) -> int:
 
     # 3. kernel vs plain version at the main path's shapes
     cfg, scene, view = bench_setup(dev)
-    result, ok = kernel_checks(cfg, scene, view)
+    result, ok, cascade0 = kernel_checks(cfg, scene, view)
     if not ok:
         return fail("kernel and plain version disagree at the bench shapes")
+    profile = "--profile" in argv
 
-    # 4. the slice
-    ms, launches, frames, problems = run_slice(cfg, scene, view, "--profile" in argv)
+    # 4. the raster-only frame
+    ms, launches, frames, problems, _, _ = run_frames(
+        "raster-only", cfg, scene, view, profile, {"rasterize": 3})
     if problems:
         return fail("raster-only frame: " + "; ".join(problems))
-    result["launches"] = launches
+    path_launches = {"raster-only": launches}
     print(f"raster_only_frame_ms: {ms:.3f} ({kind}; {smi})")
-    del scene
-    torch.cuda.empty_cache()
 
     # 5. card vs CPU
     if not card_vs_cpu():
         return fail("card and CPU frames disagree")
 
-    # 6. results
-    print(json.dumps({"kernels": [result]}))
+    # 6. the entry points at their call sites' shapes
+    entry, ok = entry_point_checks(scene, view, cfg.render_width, cfg.render_height, cascade0,
+                                   cfg.shadow_cascade_resolution)
+    if not ok:
+        return fail("an entry point's kernel and the plain version disagree at the bench shapes")
+
+    # 7. frames A and B
+    from androidrenderer_tpu_torch.config import RenderParams, default_frame_config
+    from androidrenderer_tpu_torch.render import make_renderer
+
+    for label, overrides, per_frame in (
+        ("A", {}, {"rasterize": 6}),
+        ("B", {"alpha_bitmap": False}, {"rasterize": 6, "rasterize_binned": 3}),
+    ):
+        cfg_p = default_frame_config(cfg.render_width, cfg.render_height, **overrides)
+        ms, launches, frames, problems, out, temp = run_frames(
+            f"frame {label}", cfg_p, scene, view, profile, per_frame)
+        if label == "A":
+            plain, _ = make_renderer(cfg_p.replace(occlusion_culling=False))(
+                scene, view, RenderParams.default(), temp)
+            same = (torch.equal(plain.depth, out.depth)
+                    and torch.equal(plain.visibility, out.visibility))
+            print(f"frame A, occlusion on vs off after warm-up: depth and vis equal={same}")
+            if not same:
+                problems.append("occlusion culling changed depth or visibility")
+        if problems:
+            return fail(f"frame {label}: " + "; ".join(problems))
+        path_launches[label] = launches
+        print(f"frame_{label}_ms: {ms:.3f} ({kind}; {smi})")
+    del scene
+    torch.cuda.empty_cache()
+
+    # 8. A and B at 128^2, card vs CPU
+    for label, overrides in (("A", {}), ("B", {"alpha_bitmap": False})):
+        overrides = dict(occlusion_culling=True, translucency=True, **overrides)
+        if not card_vs_cpu(f"frame {label}", overrides, curtains=True):
+            return fail(f"frame {label}: card and CPU frames disagree")
+
+    # 9. results
+    def launched(*names):
+        return sum(path[n] for path in path_launches.values() for n in names)
+
+    fused, hybrid = entry["rasterize_fused"], entry["rasterize_hybrid"]
+    kernels = [
+        dict(result, launches=launched("rasterize"),
+             max_abs_err=max(result["max_abs_err"], entry["rasterize"]["err"]),
+             translucency_layer1_ms=entry["rasterize"]["ms"],
+             translucency_layer1_plain_ms=entry["rasterize"]["plain_ms"]),
+    ]
+    rows = (
+        ("raster_binned", ("rasterize_binned",), entry["rasterize_binned"],
+         "androidrenderer_tpu/ops/raster/raster_binned.py:63", {}),
+        ("raster_fused", ("rasterize_fused", "rasterize_hybrid"), fused,
+         "androidrenderer_tpu/ops/raster/raster_fused.py:99",
+         dict(hybrid_ms=hybrid["ms"], hybrid_plain_ms=hybrid["plain_ms"],
+              hybrid_bound_ms=hybrid["bound_ms"])),
+        ("raster_pallas", ("rasterize_pallas",), entry["rasterize_pallas"],
+         "androidrenderer_tpu/ops/raster/raster_pallas.py:97", {}),
+    )
+    for name, names, r, replaces, extra in rows:
+        err = max(r["err"], hybrid["err"]) if name == "raster_fused" else r["err"]
+        kernels.append(dict(
+            name=name, route="cuda", source="androidrenderer_tpu_torch/csrc/raster.cu",
+            replaces=replaces, launches=launched(*names), max_abs_err=err,
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            bound_by=r["bound_by"], library_ms=None, **extra,
+        ))
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

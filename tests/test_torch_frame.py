@@ -87,7 +87,7 @@ def frames(request, jax_renderer):
     jparams = jax_config.RenderParams.default()
     jt = jax_temporal_state_for(to_jax_config(cfg))
     renderer = make_renderer(cfg)
-    tt = temporal_state_for(cfg)
+    tt = temporal_state_for(cfg, device="cpu")
     jax_out, port_out, jax_temporals = [], [], []
     for _ in range(FRAMES):
         jo, jt = jax_renderer(jscene, view, jparams, jt)
@@ -139,7 +139,7 @@ def test_frame_image_with_shared_cascades(frames, monkeypatch):
 
     monkeypatch.setattr(frame_mod.shadow_ops, "render_shadow_cascades_staggered", shared)
     cfg = port_config()
-    renderer, tt = make_renderer(cfg), temporal_state_for(cfg)
+    renderer, tt = make_renderer(cfg), temporal_state_for(cfg, device="cpu")
     for jo in frames["jax"]:
         to, tt = renderer(frames["scene"], frames["view"], RenderParams.default(), tt)
         img, ref = to.image.numpy(), np.asarray(jo.image)
@@ -181,7 +181,7 @@ def test_staggered_cascades_match(frames):
     <= 1.4e-3 where both cover)."""
     scene = frames["scene"]
     cascades = _cascades(frames["jax"][-1].csm)
-    state = temporal_state_for(port_config())
+    state = temporal_state_for(port_config(), device="cpu")
     packed, mats = state.csm_packed, state.csm_matrices
     kw = dict(double_sided=scene.tri_double_sided, proxy=scene.proxy,
               proxy_from_cascade=2, corners=scene.tri_corner_pos)

@@ -6,7 +6,9 @@ The file imports no JAX, so it runs where the card is:
     python -m pytest --noconftest -q -p no:cacheprovider tests/test_torch_kernels.py -m cuda
 
 (``--noconftest``: tests/conftest.py configures JAX, which that machine lacks.)
-The rasterizer is held bit-equal to ``rasterize_reference`` in every variant.
+The rasterizer is held bit-equal to ``rasterize_reference`` in every variant,
+through every entry point of the raster family, and through the exact-alpha
+peel's z_limit layers on the bench scene at 1920x1088.
 """
 
 import numpy as np
@@ -20,7 +22,10 @@ from androidrenderer_tpu_torch.ops.raster import (
     transform_to_clip,
     triangle_setup,
 )
-from androidrenderer_tpu_torch.scene.procedural import alpha_test_scene
+from androidrenderer_tpu_torch.ops.raster.raster_binned import rasterize_binned
+from androidrenderer_tpu_torch.ops.raster.raster_fused import rasterize_fused, rasterize_hybrid
+from androidrenderer_tpu_torch.ops.raster.raster_pallas import rasterize_pallas
+from androidrenderer_tpu_torch.scene.procedural import alpha_test_scene, courtyard_scene
 
 W, H = 256, 128
 
@@ -121,3 +126,53 @@ def test_raster_wrapper_rejects_bad_inputs(cuda_device):
         rasterize(setup, H, W, alpha_grid=torch.zeros((3, 8), dtype=torch.int32, device=cuda_device))
     with pytest.raises(ValueError):
         rasterize(setup, H, W, z_limit=torch.zeros((H, W), device="cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["binned", "fused", "hybrid", "pallas"])
+def test_entry_point_kernel_matches_plain(cuda_device, entry):
+    """Each entry point launches the kernel once and matches the plain version."""
+    fn = {"binned": rasterize_binned, "fused": rasterize_fused,
+          "hybrid": rasterize_hybrid, "pallas": rasterize_pallas}[entry]
+    setup = _random_setup(5, 400, cuda_device)
+    launches = fn.launches
+    got = fn(setup, H, W)
+    assert fn.launches == launches + 1
+    _assert_bit_equal(got, rasterize_reference(setup, H, W))
+    if entry in ("binned", "fused", "hybrid"):
+        ortho = _random_setup(6, 400, cuda_device, ortho=True)
+        kw = dict(depth_only=True, affine_z=True)
+        _assert_bit_equal(fn(ortho, H, W, **kw), rasterize_reference(ortho, H, W, **kw))
+
+
+@pytest.mark.cuda
+def test_exact_alpha_peel_layers_at_bench_size(cuda_device):
+    """The peel's z_limit layers on the bench scene's masked foliage at 1920x1088:
+    every layer bit-equal to the plain version, and no layer re-admits the
+    fragment its bound came from (z < z_limit is strict and exact)."""
+    from androidrenderer_tpu_torch.config import default_frame_config
+    from androidrenderer_tpu_torch.ops.raster.masked import _sample_alpha, pack_alpha_planes
+    from androidrenderer_tpu_torch.render.frame import main_view_setup
+
+    w, h = 1920, 1088
+    cfg = default_frame_config(w, h, alpha_bitmap=False)
+    scene, _ = courtyard_scene(column_rings=4, detail=13, curtains=True).build(device=cuda_device)
+    cam = Camera(fov_degrees=cfg.fov_degrees, aspect=w / h, z_near=cfg.z_near,
+                 render_resolution=(w, h))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    setup, _, _ = main_view_setup(scene, cam.view_data(), cfg)
+    masked = setup._replace(valid=setup.valid & (scene.tri_alpha_mode == 1))
+    planes = pack_alpha_planes(scene, masked)
+    zl = prev = prev_fail = None
+    for _ in range(cfg.alpha_peel_layers):
+        d, v = rasterize_binned(masked, h, w, z_limit=zl)
+        _assert_bit_equal((d, v), rasterize_reference(masked, h, w, z_limit=zl))
+        if prev is not None:
+            # Where the last layer's fragment failed, the bound is its depth.
+            assert prev_fail.any()
+            assert not (prev_fail & (v == prev)).any()
+        alpha, cutoff = _sample_alpha(scene, masked, v, alpha_planes=planes)
+        fail = (v >= 0) & ~(alpha >= cutoff)
+        zl = torch.where(fail, d, torch.full_like(d, float("inf")) if zl is None else zl)
+        prev, prev_fail = v, fail

@@ -99,22 +99,28 @@ def test_numpy_modules_are_copies(rel):
 
 
 _NO_JAX_FRAME = """
+import importlib
+import pkgutil
 import sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
 import numpy as np
 import androidrenderer_tpu_torch
+for info in pkgutil.walk_packages(androidrenderer_tpu_torch.__path__, "androidrenderer_tpu_torch."):
+    importlib.import_module(info.name)
 from androidrenderer_tpu_torch.camera import Camera
-from androidrenderer_tpu_torch.config import RenderParams, raster_only_config
+from androidrenderer_tpu_torch.config import RenderParams, default_frame_config
 from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
 from androidrenderer_tpu_torch.scene.procedural import cornell_scene
 
-cfg =raster_only_config(128, 128, shadow_cascade_resolution=128)
+# The default frame with the exact alpha peel runs every stage the port has.
+cfg = default_frame_config(128, 128, shadow_cascade_resolution=128, alpha_bitmap=False)
 scene, _ = cornell_scene().build(device="cpu")
 cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(128, 128))
 cam.set_position([0.0, 0.0, 2.2])
 cam.yaw = np.pi
-out, _ = make_renderer(cfg)(scene, cam.view_data(), RenderParams.default(), temporal_state_for(cfg))
+temporal = temporal_state_for(cfg, device="cpu")
+out, _ = make_renderer(cfg)(scene, cam.view_data(), RenderParams.default(), temporal)
 assert tuple(out.image.shape) == (128, 128, 3) and int(out.image.max()) > 0
 leaked = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split(".")[0] in ("androidrenderer_tpu", "jax"))
@@ -124,7 +130,8 @@ print("rendered without jax")
 
 
 def test_port_renders_without_jax():
-    """The package imports and renders a 128^2 cornell frame with JAX blocked."""
+    """Every module of the package imports, and the default frame with the
+    exact alpha peel renders a 128^2 cornell frame, with JAX blocked."""
     import os
     import subprocess
     import sys
@@ -139,5 +146,33 @@ def test_port_renders_without_jax():
 
 def test_package_sources_import_no_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|androidrenderer_tpu)\b", re.M)
-    for path in (REPO / "androidrenderer_tpu_torch").rglob("*.py"):
+    sources = sorted((REPO / "androidrenderer_tpu_torch").rglob("*.py"))
+    names = {p.relative_to(REPO / "androidrenderer_tpu_torch").as_posix() for p in sources}
+    assert {
+        "ops/culling.py", "ops/texture.py", "ops/raster/masked.py",
+        "ops/raster/raster_binned.py", "ops/raster/raster_fused.py",
+        "ops/raster/raster_pallas.py", "render/frame.py", "render/temporal.py",
+    } <= names
+    for path in sources:
         assert not pattern.search(path.read_text()), path
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """The scene build and the temporal state run on the card unless the caller
+    asks for the CPU: without a card they raise, and never return CPU tensors."""
+    import inspect
+
+    from androidrenderer_tpu_torch.config import raster_only_config
+    from androidrenderer_tpu_torch.render import initial_temporal_state, temporal_state_for
+    from androidrenderer_tpu_torch.scene.scene import RenderScene
+
+    for fn in (RenderScene.build, initial_temporal_state, temporal_state_for):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        torch_procedural.cornell_scene().build()
+    with pytest.raises(RuntimeError, match="is_available"):
+        initial_temporal_state()
+    with pytest.raises(RuntimeError, match="is_available"):
+        temporal_state_for(raster_only_config(128, 128))
+    assert temporal_state_for(raster_only_config(128, 128), device="cpu").csm_packed.is_cpu
