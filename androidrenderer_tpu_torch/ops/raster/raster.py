@@ -10,8 +10,7 @@ other entry points of the raster family (``raster_binned.py``,
 
 The kernel source is compiled with nvcc for ``sm_90a`` at first use, into
 ``build/torch_kernels/`` at the repository root, as a shared library with a
-plain C interface loaded through ctypes. The library name carries a hash of
-the source, so an edited source builds anew.
+plain C interface loaded through ctypes (``ops/cuda_build.py``).
 
 Contract (both versions, from the records of ``setup.pack_fused_records``):
 coverage by the three edge functions at integer pixel coordinates (all <= 0,
@@ -23,82 +22,22 @@ ties going to the higher triangle id. Depth clears to 0 and vis to -1.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import subprocess
-import time
-from pathlib import Path
+from ctypes import c_int, c_void_p
 from typing import NamedTuple
 
 import torch
 
+from androidrenderer_tpu_torch.ops.cuda_build import Library
 from androidrenderer_tpu_torch.ops.raster.setup import TriangleSetup, pack_fused_records
-
-_SOURCE = Path(__file__).resolve().parents[2] / "csrc" / "raster.cu"
-BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 # Elements of one evaluation patch batch in the plain version (keeps each
 # batch's temporaries near 100 MB at the bench shapes).
 _PATCH_BUDGET = 1 << 22
 
-
-class _Library:
-    """The compiled kernel library, built and loaded on first use."""
-
-    def __init__(self):
-        self.lib = None
-        self.path = None
-        self.build_log = ""
-        self.build_seconds = 0.0
-
-    def load(self):
-        if self.lib is not None:
-            return self.lib
-        t0 = time.perf_counter()
-        self.path, self.build_log = build_library()
-        lib = ctypes.CDLL(str(self.path))
-        fn = lib.raster_launch
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ci, ci, ci, vp, vp, ci, ci, vp, vp, vp, vp]
-        fn.restype = ci
-        self.build_seconds = time.perf_counter() - t0
-        self.lib = lib
-        return lib
-
-
-LIBRARY = _Library()
-
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("no CUDA toolkit found (set CUDA_HOME) to build csrc/raster.cu")
-    return str(Path(CUDA_HOME) / "bin" / "nvcc")
-
-
-def build_library() -> tuple[Path, str]:
-    """Compile csrc/raster.cu for sm_90a unless a library of this source exists.
-    Returns (library path, compiler output; empty when nothing was built)."""
-    src = _SOURCE.read_bytes()
-    out = BUILD_DIR / f"libraster_{hashlib.sha256(src).hexdigest()[:16]}.so"
-    if out.exists():
-        return out, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+_vp, _ci = c_void_p, c_int
+LIBRARY = Library("raster.cu", {
+    "raster_launch": [_vp, _ci, _ci, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp],
+})
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

@@ -9,7 +9,8 @@
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. the card: torch's device name, and nvidia-smi's name and power limit;
-2. build csrc/raster.cu for sm_90a (seconds, and ptxas' register report);
+2. build csrc/raster.cu and csrc/gather.cu for sm_90a, one nvcc for each, both
+   started together (seconds, and ptxas' register report);
 3. the kernel against its plain PyTorch version at the main path's shapes on
    the bench scene and camera (bench.py:134-144): the 1088x1920 main view with
    the alpha grid, and one 1024^2 cascade (depth_only + affine_z). Both must be
@@ -34,13 +35,27 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    exactly 6 per frame for A (occlusion phases 1 and 2, 2 translucent layers,
    cascade 0, one far cascade) and 9 for B (3 more, the peel's rasterize_binned);
    after warm-up A's depth and visibility must equal A's without occlusion;
-8. A and B at 128^2, card against CPU, with phase 5's thresholds;
-9. one JSON line of kernel results (kernels #1-#4 of the raster family, each
-   with its bound), the card line, and the final JSON line.
+8. the gather microbench (tools/microbench_pallas_gather.py's main) at its
+   default shape (M = 2^18, C = 32, P = 942,080 seeded indices): the kernel,
+   its plain version and embedding_bag, CUDA-event medians of 5; then the
+   kernel against the plain version within rtol 2e-5, deterministic run to
+   run, and its bound;
+9. the raster design studies' entry points (tools/experiments) at the bench
+   scene's shapes: rasterize_touch at the 1088x1920 main view, rasterize_lanes
+   and rasterize_subfold at the main view with the alpha grid and at the 1024^2
+   cascade (depth_only + affine_z); each output bit-equal to the plain version,
+   CUDA-event medians of 5;
+10. the raster microbench (tools/bench_raster.py's run) on the bench scene in
+   each mode (screen, csm, rsm) with fused, binned8 and subfold, chain 3;
+11. A and B at 128^2, card against CPU, with phase 5's thresholds;
+12. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+   the raster family, #5 the gather, each with its bound), the card line, and
+   the final JSON line.
 
-Launch counts are read per path: every entry point's count is set to 0 just
-before a path's frames and read just after, so the launches of the comparisons
-above never count.
+Launch counts are read per path (the frames of phases 4 and 7, the gather tool
+of phase 8, the entry-point calls of phase 9, the microbench of phase 10): every
+count is set to 0 just before a path runs and read just after, so the launches
+of the comparisons never count.
 
 It needs torch with CUDA and the repository beside it; it imports no JAX.
 """
@@ -312,16 +327,157 @@ def entry_point_checks(scene, view, width, height, cascade0, res):
 
 
 def entry_points():
-    """The raster family's entry points by name; each counts its own launches."""
+    """The raster family's entry points by name, the design studies' included;
+    each counts its own launches."""
     from androidrenderer_tpu_torch.ops.raster import rasterize
     from androidrenderer_tpu_torch.ops.raster.raster_binned import rasterize_binned
     from androidrenderer_tpu_torch.ops.raster.raster_fused import (
         rasterize_fused, rasterize_hybrid,
     )
     from androidrenderer_tpu_torch.ops.raster.raster_pallas import rasterize_pallas
+    from androidrenderer_tpu_torch.tools.experiments.raster_lanes import rasterize_lanes
+    from androidrenderer_tpu_torch.tools.experiments.raster_subfold import rasterize_subfold
+    from androidrenderer_tpu_torch.tools.experiments.raster_touch import rasterize_touch
 
     return {f.__name__: f for f in (
-        rasterize, rasterize_binned, rasterize_fused, rasterize_hybrid, rasterize_pallas)}
+        rasterize, rasterize_binned, rasterize_fused, rasterize_hybrid, rasterize_pallas,
+        rasterize_touch, rasterize_lanes, rasterize_subfold)}
+
+
+def gather_checks():
+    """Phase 8: (result dict, ok). The path is the gather tool's main() at its
+    default shape; its launches are counted, the comparison's are not."""
+    import torch
+
+    from androidrenderer_tpu_torch.ops.gather import (
+        TILE, gather_tile_sums, gather_tile_sums_reference,
+    )
+    from androidrenderer_tpu_torch.tools import microbench_pallas_gather as tool
+
+    rows, width = 1 << 18, 32
+    gather_tile_sums.launches = 0
+    times = tool.main(["--rows", str(rows), "--width", str(width)])
+    launches = gather_tile_sums.launches
+
+    table, idx = tool.make_inputs(rows, width, "cuda")
+    got = gather_tile_sums(table, idx)
+    again = gather_tile_sums(table, idx)
+    want = gather_tile_sums_reference(table, idx)
+    torch.cuda.synchronize()
+    p, tiles = idx.numel(), idx.numel() // TILE
+    err = (got - want).abs().max().item()
+    rel = ((got - want).abs() / want.abs().clamp(min=1e-30)).max().item()
+    ok = (tuple(got.shape) == (tiles, 8, width) and bool(torch.isfinite(got).all())
+          and torch.allclose(got, want, rtol=2e-5, atol=0.0) and not bool(got[:, 1:].any())
+          and torch.equal(got, again) and launches > 0)
+    # Bytes: each index once, each distinct row once (the 33.5 MB table fits the
+    # 50 MB L2, so a repeated row need not come from device memory again), the
+    # output once. The sum's adds are too few to bound it.
+    distinct = int(torch.unique(idx).numel())
+    out_bytes = tiles * 8 * width * 4
+    nbytes = 4 * p + distinct * width * 4 + out_bytes
+    all_bytes = 4 * p + p * width * 4 + out_bytes
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    all_ms = all_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"gather {p} lookups into {rows}x{width}: kernel vs plain max|d|={err} max rel={rel:.3g} "
+          f"(rtol 2e-5), deterministic={torch.equal(got, again)}; launches on the tool's path "
+          f"{launches}; kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
+          f"embedding_bag {times['embedding_bag']:.4f} ms")
+    print(f"  gather bound {bound_ms * 1e3:.2f} us (bytes: {distinct} distinct rows of {rows}, "
+          f"{nbytes / 1e6:.3f} MB); every lookup from device memory {all_bytes / 1e6:.3f} MB = "
+          f"{all_ms * 1e3:.2f} us")
+    result = dict(
+        name="gather", route="cuda", source="androidrenderer_tpu_torch/csrc/gather.cu",
+        replaces="tools/microbench_pallas_gather.py:52", launches=launches, max_abs_err=err,
+        ms=times["kernel"], plain_ms=times["plain"], bound_ms=bound_ms, bound_by="bytes",
+        library_ms=times["embedding_bag"], max_rel_err=rel, bound_all_from_memory_ms=all_ms,
+    )
+    return result, ok
+
+
+def experiment_checks(cfg, scene, view, cascade0):
+    """Phase 9: (results by entry point, launches by entry point, ok). The path
+    is one call of each entry point at its shapes, with every count set to 0
+    just before; the comparison and the timing come after the counts are read."""
+    import torch
+
+    from androidrenderer_tpu_torch.render.frame import main_view_setup
+
+    h, w, res = cfg.render_height, cfg.render_width, cfg.shadow_cascade_resolution
+    _, opaque, grid = main_view_setup(scene, view, cfg)
+    csm = dict(depth_only=True, affine_z=True)
+    calls = [("rasterize_touch", "main view", opaque, h, w, {})]
+    for name in ("rasterize_lanes", "rasterize_subfold"):
+        calls += [(name, "main view + alpha grid", opaque, h, w, {"alpha_grid": grid}),
+                  (name, "cascade 0", cascade0, res, res, csm)]
+    eps = entry_points()
+    for f in eps.values():
+        f.launches = 0
+    outs = [eps[name](setup, hh, ww, **kw) for name, _, setup, hh, ww, kw in calls]
+    torch.cuda.synchronize()
+    launches = {n: f.launches for n, f in eps.items()}
+    expected = {name: sum(c[0] == name for c in calls) for name, *_ in calls}
+    ok = all(launches[n] == expected.get(n, 0) for n in launches)
+    print(f"design-study entry points, one call each: launches {launches}")
+    results = {}
+    for (name, where, setup, hh, ww, kw), out in zip(calls, outs):
+        got, r = compare(f"{name} {where}", eps[name], setup, hh, ww, **kw)
+        out_t = out if isinstance(out, tuple) else (out,)
+        got_t = got if isinstance(got, tuple) else (got,)
+        ok &= r["eq"] and all(torch.equal(a, b) for a, b in zip(out_t, got_t))
+        results.setdefault(name, []).append(r)
+    return results, launches, ok
+
+
+def bench_raster_path(scene):
+    """Phase 10: (ms per raster by mode and label, launches by entry point,
+    problems) of tools/bench_raster's run() on the bench scene."""
+    import math
+
+    from androidrenderer_tpu_torch.tools import bench_raster
+
+    names, chain, modes = ["fused", "binned8", "subfold"], 3, ("screen", "csm", "rsm")
+    eps = entry_points()
+    for f in eps.values():
+        f.launches = 0
+    times = {mode: bench_raster.run(scene, mode, names, chain, "cuda") for mode in modes}
+    launches = {n: f.launches for n, f in eps.items()}
+    # One warm-up chain and 3 timed chains per name and mode.
+    per_name = len(modes) * 4 * chain
+    expected = {"rasterize_fused": per_name, "rasterize_binned": per_name,
+                "rasterize_subfold": per_name}
+    problems = [f"{n} launches {v} != {expected.get(n, 0)}" for n, v in launches.items()
+                if v != expected.get(n, 0)]
+    problems += [f"{mode} {label}: {ms} ms" for mode, t in times.items() for label, ms in t.items()
+                 if not (math.isfinite(ms) and ms > 0)]
+    print(f"bench_raster launches: {launches}")
+
+    # Where a step's time goes: its transform + setup and its raster (fused),
+    # timed apart, and the bbox work the raster walks (no frustum cull here, so
+    # triangles that cross the camera plane keep full-screen boxes).
+    from androidrenderer_tpu_torch.ops.raster import (
+        pack_fused_records, transform_to_clip, triangle_setup,
+    )
+    from androidrenderer_tpu_torch.ops.raster.raster import record_bboxes
+
+    for mode in modes:
+        mat, w, h, depth_only, affine = bench_raster.bench_view(scene, mode)
+
+        def setup():
+            return triangle_setup(transform_to_clip(scene.positions, mat), scene.tri_indices, w,
+                                  h, double_sided=scene.tri_double_sided,
+                                  tri_valid=scene.tri_valid)
+
+        su = setup()
+        _, raster = bench_raster.make_raster("fused", h, w, depth_only, affine)
+        setup_ms, raster_ms = cuda_ms(setup), cuda_ms(lambda: raster(su))
+        bx0, by0, bx1, by1, live = record_bboxes(pack_fused_records(su, affine), h, w)
+        area = ((bx1 - bx0 + 1) * (by1 - by0 + 1))[live]
+        print(f"  bench_raster {mode} {w}x{h} step: transform + setup {setup_ms:.3f} ms, "
+              f"raster (fused) {raster_ms:.3f} ms; {int(live.sum())} live records, "
+              f"{int(area.sum())} bbox pixels, {int((area >= h * w // 4).sum())} records with a "
+              f"bbox of a quarter of the target or more")
+    return times, launches, problems
 
 
 def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
@@ -332,7 +488,7 @@ def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
     import torch
 
     from androidrenderer_tpu_torch.config import RenderParams
-    from androidrenderer_tpu_torch.ops.raster.raster import BUILD_DIR
+    from androidrenderer_tpu_torch.ops.cuda_build import BUILD_DIR
     from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
 
     renderer = make_renderer(cfg)
@@ -467,6 +623,8 @@ def main(argv) -> int:
         return fail(f"androidrenderer_tpu_torch/ is not beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO))
     from androidrenderer_tpu_torch import init_device
+    from androidrenderer_tpu_torch.ops.cuda_build import load_all
+    from androidrenderer_tpu_torch.ops.gather import LIBRARY as GATHER_LIBRARY
     from androidrenderer_tpu_torch.ops.raster.raster import LIBRARY
 
     # 1. the card
@@ -479,12 +637,13 @@ def main(argv) -> int:
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(f"nvidia-smi: {smi}")
 
-    # 2. build
-    LIBRARY.load()
-    print(f"built {LIBRARY.path.relative_to(REPO)} for sm_90a in {LIBRARY.build_seconds:.1f} s")
-    for line in LIBRARY.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    # 2. build, one nvcc for each source, both started together
+    load_all(LIBRARY, GATHER_LIBRARY)
+    for lib in (LIBRARY, GATHER_LIBRARY):
+        print(f"built {lib.path.relative_to(REPO)} for sm_90a in {lib.build_seconds:.1f} s")
+        for line in lib.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas: {line.strip()}")
 
     # 3. kernel vs plain version at the main path's shapes
     cfg, scene, view = bench_setup(dev)
@@ -534,16 +693,32 @@ def main(argv) -> int:
             return fail(f"frame {label}: " + "; ".join(problems))
         path_launches[label] = launches
         print(f"frame_{label}_ms: {ms:.3f} ({kind}; {smi})")
+
+    # 8. the gather microbench
+    gather, ok = gather_checks()
+    if not ok:
+        return fail("the gather kernel and its plain version disagree at the tool's shape")
+
+    # 9. the design studies' entry points at the bench shapes
+    studies, path_launches["experiments"], ok = experiment_checks(cfg, scene, view, cascade0)
+    if not ok:
+        return fail("a design study's entry point and the plain version disagree, "
+                    "or launched other than once per call")
+
+    # 10. the raster microbench in each mode
+    bench_ms, path_launches["bench_raster"], problems = bench_raster_path(scene)
+    if problems:
+        return fail("bench_raster: " + "; ".join(problems))
     del scene
     torch.cuda.empty_cache()
 
-    # 8. A and B at 128^2, card vs CPU
+    # 11. A and B at 128^2, card vs CPU
     for label, overrides in (("A", {}), ("B", {"alpha_bitmap": False})):
         overrides = dict(occlusion_culling=True, translucency=True, **overrides)
         if not card_vs_cpu(f"frame {label}", overrides, curtains=True):
             return fail(f"frame {label}: card and CPU frames disagree")
 
-    # 9. results
+    # 12. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 
@@ -554,24 +729,45 @@ def main(argv) -> int:
              translucency_layer1_ms=entry["rasterize"]["ms"],
              translucency_layer1_plain_ms=entry["rasterize"]["plain_ms"]),
     ]
+    def bench(label):
+        return {mode: t[label] for mode, t in bench_ms.items()}
+
+    def cascade(r):
+        return dict(cascade_ms=r["ms"], cascade_plain_ms=r["plain_ms"],
+                    cascade_bound_ms=r["bound_ms"], cascade_bound_by=r["bound_by"])
+
+    touch, = studies["rasterize_touch"]
+    lanes, lanes_csm = studies["rasterize_lanes"]
+    subfold, subfold_csm = studies["rasterize_subfold"]
     rows = (
         ("raster_binned", ("rasterize_binned",), entry["rasterize_binned"],
-         "androidrenderer_tpu/ops/raster/raster_binned.py:63", {}),
+         "androidrenderer_tpu/ops/raster/raster_binned.py:63",
+         dict(bench_raster_ms=bench("binned8"))),
         ("raster_fused", ("rasterize_fused", "rasterize_hybrid"), fused,
          "androidrenderer_tpu/ops/raster/raster_fused.py:99",
          dict(hybrid_ms=hybrid["ms"], hybrid_plain_ms=hybrid["plain_ms"],
-              hybrid_bound_ms=hybrid["bound_ms"])),
+              hybrid_bound_ms=hybrid["bound_ms"], bench_raster_ms=bench("fused(prod)"))),
         ("raster_pallas", ("rasterize_pallas",), entry["rasterize_pallas"],
          "androidrenderer_tpu/ops/raster/raster_pallas.py:97", {}),
+        ("raster_touch", ("rasterize_touch",), touch,
+         "tools/experiments/raster_touch.py:189", {}),
+        ("raster_lanes", ("rasterize_lanes",), lanes,
+         "tools/experiments/raster_lanes.py:71", cascade(lanes_csm)),
+        ("raster_subfold", ("rasterize_subfold",), subfold,
+         "tools/experiments/raster_subfold.py:81",
+         dict(cascade(subfold_csm), bench_raster_ms=bench("subfold"))),
     )
+    errs = {"raster_fused": hybrid["err"], "raster_lanes": lanes_csm["err"],
+            "raster_subfold": subfold_csm["err"]}
     for name, names, r, replaces, extra in rows:
-        err = max(r["err"], hybrid["err"]) if name == "raster_fused" else r["err"]
         kernels.append(dict(
             name=name, route="cuda", source="androidrenderer_tpu_torch/csrc/raster.cu",
-            replaces=replaces, launches=launched(*names), max_abs_err=err,
+            replaces=replaces, launches=launched(*names),
+            max_abs_err=max(r["err"], errs.get(name, 0.0)),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, **extra,
         ))
+    kernels.insert(4, gather)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

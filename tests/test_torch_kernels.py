@@ -7,8 +7,10 @@ The file imports no JAX, so it runs where the card is:
 
 (``--noconftest``: tests/conftest.py configures JAX, which that machine lacks.)
 The rasterizer is held bit-equal to ``rasterize_reference`` in every variant,
-through every entry point of the raster family, and through the exact-alpha
-peel's z_limit layers on the bench scene at 1920x1088.
+through every entry point of the raster family (the design studies' included),
+and through the exact-alpha peel's z_limit layers on the bench scene at
+1920x1088; the gather-sum kernel is held to its plain version within rtol 2e-5;
+the ported raster microbench runs in each mode.
 """
 
 import numpy as np
@@ -176,3 +178,76 @@ def test_exact_alpha_peel_layers_at_bench_size(cuda_device):
         fail = (v >= 0) & ~(alpha >= cutoff)
         zl = torch.where(fail, d, torch.full_like(d, float("inf")) if zl is None else zl)
         prev, prev_fail = v, fail
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,width", [(1000, 8), (1 << 18, 32), (1 << 18, 48), (4096, 300)])
+def test_gather_kernel_matches_plain(cuda_device, rows, width):
+    """The gather-sum kernel against its plain version within the tool's rtol
+    2e-5 (C up to 300 runs the kernel's column loop), run to run bit-equal."""
+    from androidrenderer_tpu_torch.ops.gather import gather_tile_sums, gather_tile_sums_reference
+    from androidrenderer_tpu_torch.tools.microbench_pallas_gather import make_inputs
+
+    table, idx = make_inputs(rows, width, cuda_device, lookups=64 * 2048, seed=rows + width)
+    launches = gather_tile_sums.launches
+    got = gather_tile_sums(table, idx)
+    assert gather_tile_sums.launches == launches + 1
+    want = gather_tile_sums_reference(table, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (64, 8, width)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=0.0)
+    assert torch.equal(got, gather_tile_sums(table, idx))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["touch", "lanes", "subfold"])
+def test_design_study_entry_points_match_plain(cuda_device, entry):
+    """Each design study's entry point launches the kernel once per call and is
+    bit-equal to the plain version in every variant it takes."""
+    from androidrenderer_tpu_torch.tools.experiments.raster_lanes import rasterize_lanes
+    from androidrenderer_tpu_torch.tools.experiments.raster_subfold import rasterize_subfold
+    from androidrenderer_tpu_torch.tools.experiments.raster_touch import rasterize_touch
+
+    fn = {"touch": rasterize_touch, "lanes": rasterize_lanes, "subfold": rasterize_subfold}[entry]
+    for double_sided in (True, False):
+        setup = _random_setup(7, 400, cuda_device, double_sided)
+        launches = fn.launches
+        got = fn(setup, H, W)
+        assert fn.launches == launches + 1
+        _assert_bit_equal(got, rasterize_reference(setup, H, W))
+        _assert_bit_equal(fn(setup, H, W, depth_only=True),
+                          rasterize_reference(setup, H, W, depth_only=True))
+    if entry == "touch":
+        return
+    ortho = _random_setup(8, 400, cuda_device, ortho=True)
+    kw = dict(depth_only=True, affine_z=True)
+    _assert_bit_equal(fn(ortho, H, W, **kw), rasterize_reference(ortho, H, W, **kw))
+    first, _ = rasterize_reference(setup, H, W)
+    zlim = torch.where(first > 0, first * 0.75, torch.full_like(first, float("inf")))
+    _assert_bit_equal(fn(setup, H, W, z_limit=zlim),
+                      rasterize_reference(setup, H, W, z_limit=zlim))
+    grid = torch.from_numpy(
+        np.random.default_rng(9).integers(-(2**31), 2**31, (setup.valid.shape[0], 8))
+        .astype(np.int32)).to(cuda_device)
+    _assert_bit_equal(fn(setup, H, W, alpha_grid=grid),
+                      rasterize_reference(setup, H, W, alpha_grid=grid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["screen", "csm", "rsm"])
+def test_bench_raster_runs_each_mode(cuda_device, mode):
+    """The ported raster microbench on a small scene, chain 2: every name
+    launches its entry point once per step (one warm-up and 3 timed chains)."""
+    from androidrenderer_tpu_torch.ops.raster.raster_binned import rasterize_binned
+    from androidrenderer_tpu_torch.scene.procedural import cornell_scene
+    from androidrenderer_tpu_torch.tools import bench_raster
+    from androidrenderer_tpu_torch.tools.experiments.raster_subfold import rasterize_subfold
+
+    scene, _ = cornell_scene().build(device=cuda_device)
+    fns = (rasterize, rasterize_fused, rasterize_binned, rasterize_subfold)
+    before = [f.launches for f in fns]
+    times = bench_raster.run(scene, mode, ["bitmask", "fused", "binned8", "subfold"], 2,
+                             cuda_device)
+    assert set(times) == {"bitmask", "fused(prod)", "binned8", "subfold"}
+    assert all(np.isfinite(t) and t > 0 for t in times.values())
+    assert [f.launches - b for f, b in zip(fns, before)] == [8, 8, 8, 8]

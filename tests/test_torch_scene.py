@@ -98,16 +98,24 @@ def test_numpy_modules_are_copies(rel):
     assert _strip_imports(ours) == theirs
 
 
+_BLOCKED = ("jax", "jaxlib", "androidrenderer_tpu", "tools", "raster_touch", "raster_lanes",
+            "raster_subfold", "microbench_pallas_gather", "bench_raster")
+
 _NO_JAX_FRAME = """
 import importlib
 import pkgutil
 import sys
-sys.modules["jax"] = None
-sys.modules["jaxlib"] = None
+for name in %r:
+    sys.modules[name] = None
 import numpy as np
 import androidrenderer_tpu_torch
 for info in pkgutil.walk_packages(androidrenderer_tpu_torch.__path__, "androidrenderer_tpu_torch."):
     importlib.import_module(info.name)
+for name in ("ops.gather", "ops.cuda_build", "ops.raster.binning", "ops.raster.raster_xla",
+             "ops.raster.interpolate", "tools.microbench_pallas_gather", "tools.bench_raster",
+             "tools.experiments.raster_touch", "tools.experiments.raster_lanes",
+             "tools.experiments.raster_subfold"):
+    assert "androidrenderer_tpu_torch." + name in sys.modules, name
 from androidrenderer_tpu_torch.camera import Camera
 from androidrenderer_tpu_torch.config import RenderParams, default_frame_config
 from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
@@ -123,15 +131,17 @@ temporal = temporal_state_for(cfg, device="cpu")
 out, _ = make_renderer(cfg)(scene, cam.view_data(), RenderParams.default(), temporal)
 assert tuple(out.image.shape) == (128, 128, 3) and int(out.image.max()) > 0
 leaked = sorted(m for m, mod in sys.modules.items()
-                if mod is not None and m.split(".")[0] in ("androidrenderer_tpu", "jax"))
+                if mod is not None and m.split(".")[0] in %r)
 assert not leaked, leaked
 print("rendered without jax")
-"""
+""" % (_BLOCKED, _BLOCKED)
 
 
 def test_port_renders_without_jax():
-    """Every module of the package imports, and the default frame with the
-    exact alpha peel renders a 128^2 cornell frame, with JAX blocked."""
+    """Every module of the package imports, the ported tools and design studies
+    by name among them, and the default frame with the exact alpha peel renders
+    a 128^2 cornell frame, with JAX, the JAX package and the repository's
+    tools/ blocked."""
     import os
     import subprocess
     import sys
@@ -145,15 +155,19 @@ def test_port_renders_without_jax():
 
 
 def test_package_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|androidrenderer_tpu)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(%s)\b" % "|".join(_BLOCKED), re.M)
     sources = sorted((REPO / "androidrenderer_tpu_torch").rglob("*.py"))
     names = {p.relative_to(REPO / "androidrenderer_tpu_torch").as_posix() for p in sources}
     assert {
         "ops/culling.py", "ops/texture.py", "ops/raster/masked.py",
         "ops/raster/raster_binned.py", "ops/raster/raster_fused.py",
         "ops/raster/raster_pallas.py", "render/frame.py", "render/temporal.py",
+        "ops/gather.py", "ops/cuda_build.py", "ops/raster/binning.py", "ops/raster/raster_xla.py",
+        "ops/raster/interpolate.py", "tools/microbench_pallas_gather.py", "tools/bench_raster.py",
+        "tools/experiments/raster_touch.py", "tools/experiments/raster_lanes.py",
+        "tools/experiments/raster_subfold.py",
     } <= names
-    for path in sources:
+    for path in [*sources, REPO / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
 
