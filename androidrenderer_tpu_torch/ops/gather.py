@@ -20,10 +20,11 @@ from androidrenderer_tpu_torch.ops.cuda_build import Library
 
 TILE = 2048  # indices summed into one output tile
 OUT_ROWS = 8  # rows of an output tile; row 0 holds the sum
+SPLIT = 8  # blocks that share a tile in csrc/gather.cu (its kSplit), each a partial row
 
 LIBRARY = Library("gather.cu", {
     "gather_tile_sums_launch": [c_void_p, c_longlong, c_int, c_void_p, c_longlong, c_void_p,
-                                c_void_p],
+                                c_void_p, c_void_p],
 })
 
 
@@ -56,10 +57,11 @@ def gather_tile_sums(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     p = idx.shape[0]
     lib = LIBRARY.load()
     out = torch.empty((p // TILE, OUT_ROWS, c), dtype=torch.float32, device=table.device)
+    partial = torch.empty((p // TILE * SPLIT, c), dtype=torch.float32, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         err = lib.gather_tile_sums_launch(
-            table.data_ptr(), m, c, idx.data_ptr(), p, out.data_ptr(), stream
+            table.data_ptr(), m, c, idx.data_ptr(), p, out.data_ptr(), partial.data_ptr(), stream
         )
     if err != 0:
         raise RuntimeError(f"gather_tile_sums_launch failed with cudaError_t {err}")

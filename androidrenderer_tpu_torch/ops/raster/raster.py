@@ -11,6 +11,10 @@ other entry points of the raster family (``raster_binned.py``,
 The kernel source is compiled with nvcc for ``sm_90a`` at first use, into
 ``build/torch_kernels/`` at the repository root, as a shared library with a
 plain C interface loaded through ctypes (``ops/cuda_build.py``).
+``prepare_raster`` allocates one call's outputs and scratch and returns its
+launch, which measurements time alone; ``work_counts`` reads the work counts
+the kernel leaves in its scratch. ``rasterize_spans`` is the plain mirror of
+the kernel's work split and margin-widened row spans, for the tests.
 
 Contract (both versions, from the records of ``setup.pack_fused_records``):
 coverage by the three edge functions at integer pixel coordinates (all <= 0,
@@ -36,8 +40,19 @@ _PATCH_BUDGET = 1 << 22
 
 _vp, _ci = c_void_p, c_int
 LIBRARY = Library("raster.cu", {
-    "raster_launch": [_vp, _ci, _ci, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp],
+    "raster_launch": [_vp, _ci, _ci, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp],
 })
+
+# The kernel's work counters (csrc/raster.cu, ``counts``), in order.
+WORK_COUNTS = ("small", "large", "large_units", "evaluated", "bbox_pixels")
+
+# The kernel's work split and span margin, mirrored by ``rasterize_spans``: a
+# work unit is a record's bbox when it fits one tile, else one tile of it; an
+# edge with |A| below SPAN_MIN_A bounds no span; each span bound is widened by
+# 1 pixel + SPAN_REL * (max |x| + (|B y| + |C|) / |A|).
+TILE_ROWS, TILE_COLS = 32, 128
+SPAN_MIN_A = 1e-12
+SPAN_REL = 2.0 ** -19
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
@@ -84,38 +99,80 @@ def raster_records(records, height, width, depth_only, affine_z, z_limit, alpha_
         return _reference_from_records(
             records, height, width, depth_only, affine_z, z_limit, alpha_grid
         )
+    call = prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_grid)
+    call.launch()
+    counter.launches += 1
+    return call.outputs
+
+
+class RasterCall(NamedTuple):
+    """One kernel call with its buffers allocated: ``launch()`` enqueues it on
+    the current stream (clear, compaction, scan, raster, resolve) into
+    ``outputs``; ``counts`` (8 int64 on the card) then holds its work counts."""
+
+    launch: object
+    outputs: object
+    counts: torch.Tensor
+
+
+def prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_grid,
+                   library=LIBRARY):
+    """Check the inputs of a kernel call and allocate its outputs and scratch
+    (``torch.empty``: the kernel allocates nothing). Launches nothing and counts
+    nothing; ``raster_records`` launches once and counts it. ``library``: a
+    build of another source with raster_launch's signature (tools/raster_cuts.py)."""
     if records.device.type != "cuda":
         raise ValueError(f"the rasterizer runs on cuda or cpu tensors, got {records.device}")
     n = records.shape[0]
     if n >= 2**31 or height * width >= 2**31:
         raise ValueError(f"{n} triangles into {height}x{width} exceeds the kernel's int32 indexing")
     dev = records.device
+    _check(records, "records", torch.float32, (n, 24), dev)
+    if records.data_ptr() % 16:
+        raise ValueError("records must be 16-byte aligned (the kernel reads them as float4)")
     if z_limit is not None:
         _check(z_limit, "z_limit", torch.float32, (height, width), dev)
     if alpha_grid is not None:
         _check(alpha_grid, "alpha_grid", torch.int32, (n, 8), dev)
-    lib = LIBRARY.load()
+    lib = library.load()
     depth = torch.empty((height, width), dtype=torch.float32, device=dev)
     if depth_only:
         keys = vis = None
     else:
         keys = torch.empty((height, width), dtype=torch.int64, device=dev)
         vis = torch.empty((height, width), dtype=torch.int32, device=dev)
+    # Tile offsets of the large records (n u64), then the small list, the large
+    # list and the large records' tile counts (n i32 each).
+    work = torch.empty(5 * n, dtype=torch.int32, device=dev)
+    counts = torch.empty(8, dtype=torch.int64, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.raster_launch(
-            records.data_ptr(), n, height, width, ptr(z_limit), ptr(alpha_grid),
-            int(depth_only), int(affine_z), ptr(keys), depth.data_ptr(), ptr(vis),
-            stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"raster_launch failed with cudaError_t {err}")
-    counter.launches += 1
-    return depth if depth_only else (depth, vis)
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = lib.raster_launch(
+                records.data_ptr(), n, height, width, ptr(z_limit), ptr(alpha_grid),
+                int(depth_only), int(affine_z), ptr(keys), depth.data_ptr(), ptr(vis),
+                work.data_ptr(), counts.data_ptr(), stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"raster_launch failed with cudaError_t {err}")
+
+    return RasterCall(launch, depth if depth_only else (depth, vis), counts)
+
+
+def work_counts(counts: torch.Tensor) -> dict:
+    """The kernel's work counts by name (reads the device: for measurements,
+    never on the frame path): small and large live records, the large ones'
+    tiles, ``units`` (small + tiles), pixels evaluated, bbox pixels."""
+    c = dict(zip(WORK_COUNTS, counts.tolist()))
+    c["live"] = c["small"] + c["large"]
+    c["units"] = c["small"] + c["large_units"]
+    return c
 
 
 def rasterize_reference(
@@ -136,15 +193,18 @@ def rasterize_reference(
     )
 
 
-def _reference_from_records(rec, height, width, depth_only, affine_z, z_limit, alpha_grid):
+def _reference_from_records(rec, height, width, depth_only, affine_z, z_limit, alpha_grid,
+                            fragments=None):
     """Evaluate each live triangle on its clipped bbox, in patches grouped by
     bbox size class (next power of two per axis), and combine the fragments with
     ``scatter_reduce_("amax")`` on the int64 key (bits(z) << 32 | id) — exact and
-    independent of order, like the kernel's atomicMax."""
+    independent of order, like the kernel's atomicMax. ``fragments`` replaces
+    the bbox walk (``patch_fragments``) with another that yields (triangle ids,
+    Fragments) with one id per leading index of the fragments."""
     npix = height * width
     keys = torch.zeros(npix + 1, dtype=torch.int64, device=rec.device)  # last = discard slot
     zl = None if z_limit is None else z_limit.reshape(-1)
-    for tri, frag in patch_fragments(rec, height, width, affine_z):
+    for tri, frag in (fragments or patch_fragments)(rec, height, width, affine_z):
         cov = frag.covered & (frag.z > 0.0) & (frag.z <= 1.0)
         if zl is not None:
             cov = cov & (frag.z < zl[frag.pix])
@@ -156,7 +216,7 @@ def _reference_from_records(rec, height, width, depth_only, affine_z, z_limit, a
             ).reshape(idx.shape)
             cov = cov & (((words >> (idx & 31)) & 1) == 1)
         zbits = frag.z.contiguous().view(torch.int32).to(torch.int64)
-        key = (zbits << 32) | tri[:, None, None]
+        key = (zbits << 32) | tri.reshape(tri.shape + (1,) * (frag.z.dim() - 1))
         target = torch.where(cov, frag.pix, torch.full_like(frag.pix, npix))
         keys.scatter_reduce_(0, target.reshape(-1), key.reshape(-1), "amax")
     keys = keys[:npix].reshape(height, width)
@@ -210,26 +270,160 @@ def patch_fragments(rec, height, width, affine_z):
         for s in range(0, members.numel(), step):
             tri = members[s:s + step]
             r = rec[tri]  # (B, 24)
-
-            def col(k):
-                return r[:, k, None, None]
-
             px = bx0[tri, None, None] + torch.arange(pw, device=dev)[None, None, :]
             py = by0[tri, None, None] + torch.arange(ph, device=dev)[None, :, None]
             inside = (px <= bx1[tri, None, None]) & (py <= by1[tri, None, None])
-            fx = px.to(torch.float32)
-            fy = py.to(torch.float32)
-            d0 = col(0) * fx + col(1) * fy + col(2)
-            d1 = col(3) * fx + col(4) * fy + col(5)
-            d2 = col(6) * fx + col(7) * fy + col(8)
-            front = (d0 <= 0.0) & (d1 <= 0.0) & (d2 <= 0.0)
-            back = (col(18) < 0.0) & (d0 >= 0.0) & (d1 >= 0.0) & (d2 >= 0.0)
-            if affine_z:
-                z = col(12) * fx + col(13) * fy + col(14)
-            else:
-                z = (col(15) * fx + col(16) * fy + col(17)) / (col(12) * fx + col(13) * fy + col(14))
-            pix = (py * width + px).clamp(max=height * width - 1)
-            yield tri, Fragments(pix, inside & (front | back), z, d0, d1, d2)
+            yield tri, _evaluate(lambda k: r[:, k, None, None], px, py, inside, height, width,
+                                 affine_z)
+
+
+def _evaluate(col, px, py, inside, height, width, affine_z) -> Fragments:
+    """The contract's edge tests and z at integer pixels (px, py), with the
+    kernel's rounding; ``col(k)`` is record slot k broadcast against them."""
+    fx = px.to(torch.float32)
+    fy = py.to(torch.float32)
+    d0 = col(0) * fx + col(1) * fy + col(2)
+    d1 = col(3) * fx + col(4) * fy + col(5)
+    d2 = col(6) * fx + col(7) * fy + col(8)
+    front = (d0 <= 0.0) & (d1 <= 0.0) & (d2 <= 0.0)
+    back = (col(18) < 0.0) & (d0 >= 0.0) & (d1 >= 0.0) & (d2 >= 0.0)
+    if affine_z:
+        z = col(12) * fx + col(13) * fy + col(14)
+    else:
+        z = (col(15) * fx + col(16) * fy + col(17)) / (col(12) * fx + col(13) * fy + col(14))
+    pix = (py * width + px).clamp(max=height * width - 1)
+    return Fragments(pix, inside & (front | back), z, d0, d1, d2)
+
+
+def work_units(rec, height, width):
+    """The kernel's work split (csrc/raster.cu, prep and scan): (record id,
+    x0, y0, x1, y1) of every work unit — a live record's clipped bbox when it
+    fits one TILE_ROWS x TILE_COLS tile, else each such tile of it, from its
+    bbox's corner — and the counts the kernel keeps of them."""
+    dev = rec.device
+    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width)
+    ids = torch.nonzero(live).flatten()
+    bw, bh = (bx1 - bx0 + 1)[ids], (by1 - by0 + 1)[ids]
+    nx = (bw + TILE_COLS - 1) // TILE_COLS
+    units = nx * ((bh + TILE_ROWS - 1) // TILE_ROWS)
+    t = torch.repeat_interleave(ids, units)
+    first = torch.repeat_interleave(torch.cumsum(units, 0) - units, units)
+    j = torch.arange(t.numel(), device=dev) - first
+    nx_t = torch.repeat_interleave(nx, units)
+    ty, tx = j // nx_t, j % nx_t
+    x0 = bx0[t] + tx * TILE_COLS
+    y0 = by0[t] + ty * TILE_ROWS
+    x1 = torch.minimum(bx1[t], x0 + TILE_COLS - 1)
+    y1 = torch.minimum(by1[t], y0 + TILE_ROWS - 1)
+    large = units > 1
+    counts = dict(small=int((~large).sum()), large=int(large.sum()),
+                  large_units=int(units[large].sum()), bbox_pixels=int((bw * bh).sum()))
+    return (t, x0, y0, x1, y1), counts
+
+
+def row_spans(rec, t, x0, x1, y):
+    """The kernel's spans of row ``y`` of a unit of record ``t`` with columns
+    x0..x1 (all (R,)): (front first x, front length, back first x, back length),
+    each edge's crossing -(B*y + C) * inv_A widened by the rounding margin, in
+    float32 with each operation rounded alone, as csrc/raster.cu computes them.
+    Overlapping or touching spans merge into the front one."""
+    f32 = torch.float32
+    r = rec[t]
+    fy, xmag = y.to(f32), x1.to(f32)
+    lo_f, hi_f = x0.to(f32), x1.to(f32)
+    lo_b, hi_b = lo_f, hi_f
+    min_a = torch.tensor(SPAN_MIN_A, dtype=f32, device=rec.device)
+    for k in range(3):
+        a, b, c, inv_a = r[:, 3 * k], r[:, 3 * k + 1], r[:, 3 * k + 2], r[:, 9 + k]
+        by = b * fy
+        xe = -(by + c) * inv_a
+        m = (by.abs() + c.abs()) * inv_a.abs()
+        margin = 1.0 + SPAN_REL * (xmag + m)
+        up, down = xe + margin, xe - margin
+        bounds = a.abs() >= min_a  # false for NaN, as in the kernel
+        pos, neg = bounds & (a > 0.0), bounds & ~(a > 0.0)
+        # fmin/fmax drop a NaN bound, as fminf/fmaxf do.
+        hi_f = torch.where(pos, torch.fmin(hi_f, up), hi_f)
+        lo_b = torch.where(pos, torch.fmax(lo_b, down), lo_b)
+        lo_f = torch.where(neg, torch.fmax(lo_f, down), lo_f)
+        hi_b = torch.where(neg, torch.fmin(hi_b, up), hi_b)
+
+    def pixels(lo, hi):
+        lo = torch.fmin(lo, (x1 + 1).to(f32))
+        hi = torch.fmax(hi, (x0 - 1).to(f32))
+        start = torch.ceil(lo).to(torch.int64)
+        return start, (torch.floor(hi).to(torch.int64) - start + 1).clamp(min=0)
+
+    fx, fn = pixels(lo_f, hi_f)
+    bx, bn = pixels(lo_b, hi_b)
+    bn = torch.where(r[:, 18] < 0.0, bn, torch.zeros_like(bn))
+    merge = (fn > 0) & (bn > 0) & (bx <= fx + fn) & (fx <= bx + bn)
+    lo = torch.minimum(fx, bx)
+    fn = torch.where(merge, torch.maximum(fx + fn, bx + bn) - lo, fn)
+    fx = torch.where(merge, lo, fx)
+    bn = torch.where(merge, torch.zeros_like(bn), bn)
+    return fx, fn, bx, bn
+
+
+def _unit_rows(rec, units):
+    """(record, y, front x, front length, back x, back length) of every row of
+    ``units`` (from ``work_units``)."""
+    t, x0, y0, x1, y1 = units
+    y = y0[:, None] + torch.arange(TILE_ROWS, device=rec.device)[None, :]
+    keep = y <= y1[:, None]
+
+    t, x0, x1 = (v[:, None].expand_as(y)[keep] for v in (t, x0, x1))
+    y = y[keep]
+    return (t, y, *row_spans(rec, t, x0, x1, y))
+
+
+def span_fragments(rec, height, width, affine_z, batch_units=1 << 14):
+    """Yield (triangle id per fragment, flat Fragments) over the pixels of the
+    kernel's row spans only, unit by unit in batches: the plain mirror of
+    csrc/raster.cu's walk. Used by the tests, not by the frame."""
+    units, _ = work_units(rec, height, width)
+    dev = rec.device
+    for s in range(0, units[0].numel(), batch_units):
+        t, y, fx, fn, bx, bn = _unit_rows(rec, tuple(u[s:s + batch_units] for u in units))
+        cnt = fn + bn
+        row = torch.repeat_interleave(torch.arange(cnt.numel(), device=dev), cnt)
+        k = torch.arange(row.numel(), device=dev) - (torch.cumsum(cnt, 0) - cnt)[row]
+        px = torch.where(k < fn[row], fx[row] + k, bx[row] + k - fn[row])
+        tri = t[row]
+        r = rec[tri]
+        yield tri, _evaluate(lambda c: r[:, c], px, y[row], torch.ones_like(px, dtype=torch.bool),
+                             height, width, affine_z)
+
+
+def span_work(rec, height, width) -> dict:
+    """The kernel's work counts (``work_counts``' names) for these records,
+    from the mirror's split and spans."""
+    units, counts = work_units(rec, height, width)
+    _, _, _, fn, _, bn = _unit_rows(rec, units)
+    counts["evaluated"] = int((fn + bn).sum())
+    counts["live"] = counts["small"] + counts["large"]
+    counts["units"] = counts["small"] + counts["large_units"]
+    return counts
+
+
+def rasterize_spans(
+    setup: TriangleSetup,
+    height: int,
+    width: int,
+    depth_only: bool = False,
+    affine_z: bool = False,
+    z_limit: torch.Tensor | None = None,
+    alpha_grid: torch.Tensor | None = None,
+):
+    """``rasterize_reference`` evaluated on the kernel's margin-widened row
+    spans instead of every bbox pixel: the plain mirror of csrc/raster.cu's
+    work split and spans. Equal to the reference bit for bit exactly when no
+    span misses a pixel the rounded test accepts. Tests only."""
+    records = pack_fused_records(setup, affine_z=affine_z)
+    return _reference_from_records(
+        records, height, width, depth_only, affine_z, z_limit, alpha_grid,
+        fragments=span_fragments,
+    )
 
 
 def alpha_bit_index(frag: Fragments) -> torch.Tensor:

@@ -79,7 +79,7 @@ def rasterize_hybrid(
     The JAX hybrid (raster_fused.py:512-586) retires triangles whose integer
     bbox is one pixel with an XLA scatter-max outside its Pallas kernel, because
     every touch costs the TPU kernel a whole (32, 128) window. The Hopper kernel
-    spends one block per triangle and covers such triangles itself, so this
+    spends one warp on such a triangle and covers it itself, so this
     entry point sends every triangle through the kernel: one launch, counted in
     ``rasterize_hybrid.launches``; a CPU setup runs the plain version. The JAX
     hybrid's splat and kernel agree to a few ULP (test_raster_binned.py:230-238);

@@ -12,7 +12,9 @@ entry point keeps the JAX signature and launches it with ``depth_only``.
 Where the contracts differ: the TPU kernel's span clip (raster_pallas.py:
 182-216) bounds each 8-row strip by -(B*y + C)/A rounded in float32, so a
 fragment at a span end can in principle be skipped there; the Hopper kernel
-evaluates every pixel of the bbox. The JAX package's own test holds the span
+walks row spans too, but widened by a rounding margin wide enough that no
+pixel its rounded test accepts is skipped (bit-equal to the plain version,
+which tests every pixel of the bbox). The JAX package's own test holds the span
 kernel to the XLA rasterizer at depth rtol 1e-6 with visibility differing only
 where depth does (tests/test_raster_pallas.py:38-62), and the port's test holds
 this entry point to the span kernel at that tolerance.

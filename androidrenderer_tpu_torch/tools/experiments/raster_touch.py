@@ -18,7 +18,7 @@ Where the contracts differ:
 - The TPU kernel evaluates ``A*x + B*y + C`` and ``r/q`` in vector code that
   the compiler may contract (raster_touch.py:228-236), and tests coverage on
   whole windows; the Hopper kernel rounds each product and sum on its own and
-  walks each triangle's clipped bbox. The JAX suite holds the study at 99.5% of
+  walks each triangle's margin-widened row spans. The JAX suite holds the study at 99.5% of
   depth within rtol 1e-6 of the XLA rasterizer (test_raster_touch.py:33-36).
 """
 

@@ -5,6 +5,16 @@
     python3 chip_smoke.py --profile  # also prints per-stage times of 3 profiled frames and
                                      # writes the torch.profiler table beside the kernel
                                      # build (build/torch_kernels/torch_frame_profile.txt)
+    python3 chip_smoke.py --parent-csrc DIR  # also times the kernels of another tree's
+                                     # csrc/ (raster.cu, gather.cu: e.g. the parent commit's,
+                                     # unpacked with git archive) beside this tree's, in
+                                     # turns (old, new, new, old) at every timed call site
+
+Kernel-only times (``kernel_ms``, tools/kernel_timing.py): the launch function
+alone, its buffers and records prepared beforehand, 50 launches back to back
+between one CUDA event pair behind a device-side sleep (so the host has
+enqueued them all before the first starts), divided by 50. The per-call ``ms``
+beside them also holds the record pack, the allocations and the host's enqueue.
 
 Phases, in order; any failure ends the run with a non-zero exit code:
 
@@ -14,7 +24,9 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 3. the kernel against its plain PyTorch version at the main path's shapes on
    the bench scene and camera (bench.py:134-144): the 1088x1920 main view with
    the alpha grid, and one 1024^2 cascade (depth_only + affine_z). Both must be
-   bit-equal; times are CUDA-event medians of 5;
+   bit-equal; times are CUDA-event medians of 5, and kernel-only; the kernel's
+   work counts (live records, work units, pixels evaluated against bbox
+   pixels) from its scratch counters, beside the plain mirror's;
 4. the raster-only bench frame at 1920x1088: 3 warm-up frames, then 4 chains of
    10 frames timed around torch.cuda.synchronize(); median ms/frame; checks on
    the image and HDR; the raster launch count must grow by exactly 3 per frame
@@ -28,7 +40,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    masked triangles, layer 1 under the z_limit layer 0 leaves), rasterize for
    the translucency peel's layer 1 (the blend triangles under layer 0's depth),
    rasterize_fused and rasterize_pallas at the 1088x1920 main view, and
-   rasterize_hybrid at the 1024^2 cascade (depth_only + affine_z);
+   rasterize_hybrid at the 1024^2 cascade (depth_only + affine_z); each with its
+   kernel-only time and work counts;
 7. the headless CLI's default frame (A, config.default_frame_config: two-phase
    HiZ occlusion, alpha bitmaps, translucency) and its exact-alpha twin (B,
    alpha_bitmap=False) at 1920x1088, timed as phase 4: raster launches must be
@@ -39,18 +52,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    default shape (M = 2^18, C = 32, P = 942,080 seeded indices): the kernel,
    its plain version and embedding_bag, CUDA-event medians of 5; then the
    kernel against the plain version within rtol 2e-5, deterministic run to
-   run, and its bound;
+   run, its kernel-only time and its bound;
 9. the raster design studies' entry points (tools/experiments) at the bench
    scene's shapes: rasterize_touch at the 1088x1920 main view, rasterize_lanes
    and rasterize_subfold at the main view with the alpha grid and at the 1024^2
    cascade (depth_only + affine_z); each output bit-equal to the plain version,
    CUDA-event medians of 5;
 10. the raster microbench (tools/bench_raster.py's run) on the bench scene in
-   each mode (screen, csm, rsm) with fused, binned8 and subfold, chain 3;
+   each mode (screen, csm, rsm) with fused, binned8 and subfold, chain 3; then
+   each mode's step split: transform + setup, and the raster per call and
+   kernel-only, with its work counts;
 11. A and B at 128^2, card against CPU, with phase 5's thresholds;
 12. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
-   the raster family, #5 the gather, each with its bound), the card line, and
-   the final JSON line.
+   the raster family, #5 the gather, each with its call time ``ms``, its
+   kernel-only time ``kernel_ms`` and its bound), the card line, and the final
+   JSON line.
 
 Launch counts are read per path (the frames of phases 4 and 7, the gather tool
 of phase 8, the entry-point calls of phase 9, the microbench of phase 10): every
@@ -94,6 +110,68 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+# Kernels of another tree's csrc/ (--parent-csrc), timed beside this tree's.
+PARENT = {}
+
+
+def parent_raster_launch(records, height, width, depth_only, affine_z, z_limit, alpha_grid):
+    """A launch of the other tree's raster_launch (its signature: no scratch
+    but the key buffer) on buffers allocated here, or None without one."""
+    import torch
+
+    lib = PARENT.get("raster")
+    if lib is None:
+        return None
+    dev = records.device
+    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
+    keys = None if depth_only else torch.empty((height, width), dtype=torch.int64, device=dev)
+    vis = None if depth_only else torch.empty((height, width), dtype=torch.int32, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = lib.load().raster_launch
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(records.data_ptr(), records.shape[0], height, width, ptr(z_limit),
+              ptr(alpha_grid), int(depth_only), int(affine_z), ptr(keys), depth.data_ptr(),
+              ptr(vis), stream) != 0:
+            raise RuntimeError("the other tree's raster_launch failed")
+
+    return launch
+
+
+def raster_site(label, setup, height, width, depth_only=False, affine_z=False, z_limit=None,
+                alpha_grid=None, mirror=False):
+    """Kernel-only time (and the other tree's, in turns) of one raster call
+    site, and the kernel's work counts read from its scratch counters (and the
+    plain mirror's, with ``mirror``); printed, and returned as a dict."""
+    from androidrenderer_tpu_torch.ops.raster import pack_fused_records
+    from androidrenderer_tpu_torch.ops.raster.raster import (
+        prepare_raster, span_work, work_counts,
+    )
+
+    from androidrenderer_tpu_torch.tools.kernel_timing import in_turns
+
+    rec = pack_fused_records(setup, affine_z=affine_z)
+    args = (rec, height, width, depth_only, affine_z, z_limit, alpha_grid)
+    call = prepare_raster(*args)
+    call.launch()
+    work = work_counts(call.counts)
+    kernel_ms, parent_ms = in_turns(call.launch, parent_raster_launch(*args))
+    text = (f"  {label} kernel-only {kernel_ms * 1e3:.2f} us"
+            + ("" if parent_ms is None else f" (other tree's kernel {parent_ms * 1e3:.2f} us)")
+            + f"; work: {work['live']} live records, {work['units']} units "
+            f"({work['small']} small records, {work['large_units']} tiles of {work['large']} "
+            f"large), {work['evaluated']} pixels evaluated of {work['bbox_pixels']} bbox pixels")
+    if mirror:
+        plain = span_work(rec, height, width)
+        text += f"; plain mirror's counts equal: {all(work[k] == v for k, v in plain.items())}"
+    print(text)
+    return dict(kernel_ms=kernel_ms, parent_kernel_ms=parent_ms, work=work)
+
+
 def bench_setup(device):
     """The bench scene, camera and raster-only config (bench.py:83-195)."""
     import numpy as np
@@ -125,18 +203,21 @@ FP32_OPS_PER_S = 67e12
 def raster_bound(setup, height, width, depth_only=False, affine_z=False, z_limit=None,
                  alpha_grid=None):
     """(least ms the card could take for one raster call, "bytes" or "operations",
-    the counts as text),
-    from the work this call's data needs, counted by walking each live record's
-    clipped bbox as csrc/raster.cu does (the plain version's fragment walk).
+    the counts as text), from the work this call's data needs, counted with the
+    plain version's fragment walk over each live record's clipped bbox.
 
     Bytes, each input read once and each output written once: 96 B for each
     live record (sid != 0 and a non-empty clipped bbox), 4 B (its sid) for each
     dead one; 4 B of z_limit for each distinct pixel a fragment in depth range
     tests; 4 B for each distinct alpha word a fragment tests; depth (f32) and
     vis (i32) written for every pixel. The kernel's key buffer is scratch and
-    not counted. Operations, in float32: 12 per bbox pixel (3 edge planes of
-    2 mul + 2 add), per covered pixel the z (1 plane, 4, with affine_z; else 2
-    planes and a divide, 9), and 7 per alpha test (2 add, a divide, 4 mul)."""
+    not counted. Operations, in float32, per covered pixel (all three edge
+    tests passed): 12 for the edge tests (3 planes of 2 mul + 2 add) and the z
+    (1 plane, 4, with affine_z; else 2 planes and a divide, 9); 7 per alpha test
+    (2 add, a divide, 4 mul). A pixel that no edge test passes needs no work: a
+    schedule that evaluates it pays for its own walk. The text also gives the
+    operation time of the earlier count, 12 per bbox pixel, which charged the
+    walk of every bbox pixel to the bound."""
     import torch
 
     from androidrenderer_tpu_torch.ops.raster import pack_fused_records
@@ -165,11 +246,13 @@ def raster_bound(setup, height, width, depth_only=False, affine_z=False, z_limit
             alpha_tests += int(tested.sum())
     nbytes = (n_live * 96 + (n - n_live) * 4 + height * width * 4 * (1 if depth_only else 2)
               + int(zl_read.sum()) * 4 + int(words.sum()) * 4)
-    ops = bbox_px * 12 + covered * (4 if affine_z else 9) + alpha_tests * 7
+    ops = covered * (12 + (4 if affine_z else 9)) + alpha_tests * 7
+    bbox_ops = ops + (bbox_px - covered) * 12
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     work = (f"{n_live} of {n} records live, {bbox_px} bbox pixels, {covered} covered, "
             f"{alpha_tests} alpha tests; {nbytes / 1e6:.3f} MB = {t_bytes * 1e3:.2f} us, "
-            f"{ops / 1e6:.3f} M ops = {t_ops * 1e3:.2f} us")
+            f"{ops / 1e6:.3f} M ops = {t_ops * 1e3:.2f} us (counted per bbox pixel as before: "
+            f"{bbox_ops / 1e6:.3f} M ops = {bbox_ops / FP32_OPS_PER_S * 1e6:.2f} us)")
     return (t_bytes, "bytes", work) if t_bytes >= t_ops else (t_ops, "operations", work)
 
 
@@ -197,6 +280,7 @@ def kernel_checks(cfg, scene, view):
     print(f"main view {h}x{w} + alpha grid: bit-equal={main_eq} max|d depth|={main_err} "
           f"vis differing={vis_diff} covered={covered:.4f} "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    main_site = raster_site("main view + alpha grid", opaque, h, w, alpha_grid=grid, mirror=True)
 
     res = cfg.shadow_cascade_resolution
     inv_view = torch.as_tensor(view.inverse_view, device=scene.positions.device)
@@ -221,6 +305,7 @@ def kernel_checks(cfg, scene, view):
     print(f"cascade 0 {res}^2 depth_only+affine_z: bit-equal={csm_eq} max|d depth|={csm_err} "
           f"covered={(dk > 0).float().mean().item():.4f} "
           f"kernel {csm_ms:.3f} ms, plain {csm_plain_ms:.3f} ms")
+    csm_site = raster_site("cascade 0", c0, res, res, mirror=True, **kw)
     bound_ms, bound_by, work = raster_bound(opaque, h, w, alpha_grid=grid)
     print(f"  main view bound {bound_ms * 1e3:.2f} us ({bound_by}): {work}")
     csm_bound_ms, csm_bound_by, work = raster_bound(c0, res, res, depth_only=True, affine_z=True)
@@ -232,20 +317,28 @@ def kernel_checks(cfg, scene, view):
         "replaces": "androidrenderer_tpu/ops/raster/raster_bitmask.py:82",
         "max_abs_err": max(main_err, csm_err),
         "ms": ms,
+        "kernel_ms": main_site["kernel_ms"],
+        "parent_kernel_ms": main_site["parent_kernel_ms"],
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,  # no single PyTorch call rasterizes
+        "work": main_site["work"],
         "cascade_ms": csm_ms,
+        "cascade_kernel_ms": csm_site["kernel_ms"],
+        "cascade_parent_kernel_ms": csm_site["parent_kernel_ms"],
         "cascade_plain_ms": csm_plain_ms,
         "cascade_bound_ms": csm_bound_ms,
+        "cascade_bound_by": csm_bound_by,
+        "cascade_work": csm_site["work"],
     }
     return result, main_eq and csm_eq and covered > 0.5, c0
 
 
 def compare(label, fn, setup, height, width, **kw):
     """Kernel (through entry point ``fn``) against the plain version on the same
-    inputs: (outputs, {eq, err, ms, plain_ms, bound_ms, bound_by})."""
+    inputs: (outputs, {eq, err, ms, kernel_ms, parent_kernel_ms, plain_ms,
+    bound_ms, bound_by, work})."""
     import torch
 
     from androidrenderer_tpu_torch.ops.raster import rasterize_reference
@@ -270,8 +363,9 @@ def compare(label, fn, setup, height, width, **kw):
     print(f"{label} {height}x{width}, {live} live triangles: bit-equal={eq} "
           f"max|d depth|={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {work})")
+    site = raster_site(label, setup, height, width, **plain_kw)
     return got, dict(eq=eq, err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by)
+                     bound_by=bound_by, **site)
 
 
 def entry_point_checks(scene, view, width, height, cascade0, res):
@@ -304,6 +398,8 @@ def entry_point_checks(scene, view, width, height, cascade0, res):
           f"{readmitted} re-admit layer 0's triangle")
     ok &= r0["eq"] and r1["eq"] and readmitted == 0 and int(peeled.sum()) > 0
     out["rasterize_binned"] = dict(r0, err=max(r0["err"], r1["err"]), layer1_ms=r1["ms"],
+                                   layer1_kernel_ms=r1["kernel_ms"],
+                                   layer1_parent_kernel_ms=r1["parent_kernel_ms"],
                                    layer1_plain_ms=r1["plain_ms"],
                                    layer1_bound_ms=r1["bound_ms"])
 
@@ -350,9 +446,10 @@ def gather_checks():
     import torch
 
     from androidrenderer_tpu_torch.ops.gather import (
-        TILE, gather_tile_sums, gather_tile_sums_reference,
+        LIBRARY as GATHER_LIBRARY, TILE, gather_tile_sums, gather_tile_sums_reference,
     )
     from androidrenderer_tpu_torch.tools import microbench_pallas_gather as tool
+    from androidrenderer_tpu_torch.tools.kernel_timing import in_turns
 
     rows, width = 1 << 18, 32
     gather_tile_sums.launches = 0
@@ -360,6 +457,9 @@ def gather_checks():
     launches = gather_tile_sums.launches
 
     table, idx = tool.make_inputs(rows, width, "cuda")
+    parent = PARENT.get("gather")
+    kernel_ms, parent_ms = in_turns(gather_launch(GATHER_LIBRARY, table, idx),
+                                    None if parent is None else gather_launch(parent, table, idx))
     got = gather_tile_sums(table, idx)
     again = gather_tile_sums(table, idx)
     want = gather_tile_sums_reference(table, idx)
@@ -382,17 +482,41 @@ def gather_checks():
     print(f"gather {p} lookups into {rows}x{width}: kernel vs plain max|d|={err} max rel={rel:.3g} "
           f"(rtol 2e-5), deterministic={torch.equal(got, again)}; launches on the tool's path "
           f"{launches}; kernel {times['kernel']:.4f} ms, plain {times['plain']:.4f} ms, "
-          f"embedding_bag {times['embedding_bag']:.4f} ms")
+          f"embedding_bag {times['embedding_bag']:.4f} ms; kernel-only {kernel_ms * 1e3:.2f} us"
+          + ("" if parent_ms is None else f" (other tree's kernel {parent_ms * 1e3:.2f} us)"))
     print(f"  gather bound {bound_ms * 1e3:.2f} us (bytes: {distinct} distinct rows of {rows}, "
           f"{nbytes / 1e6:.3f} MB); every lookup from device memory {all_bytes / 1e6:.3f} MB = "
           f"{all_ms * 1e3:.2f} us")
     result = dict(
         name="gather", route="cuda", source="androidrenderer_tpu_torch/csrc/gather.cu",
         replaces="tools/microbench_pallas_gather.py:52", launches=launches, max_abs_err=err,
-        ms=times["kernel"], plain_ms=times["plain"], bound_ms=bound_ms, bound_by="bytes",
+        ms=times["kernel"], kernel_ms=kernel_ms, parent_kernel_ms=parent_ms,
+        plain_ms=times["plain"], bound_ms=bound_ms, bound_by="bytes",
         library_ms=times["embedding_bag"], max_rel_err=rel, bound_all_from_memory_ms=all_ms,
     )
     return result, ok
+
+
+def gather_launch(library, table, idx):
+    """A launch of ``library``'s gather_tile_sums_launch on buffers allocated
+    here: the output, and the partial-sum scratch where its signature takes one."""
+    import torch
+
+    from androidrenderer_tpu_torch.ops.gather import OUT_ROWS, SPLIT, TILE
+
+    (m, c), p = table.shape, idx.numel()
+    out = torch.empty((p // TILE, OUT_ROWS, c), dtype=torch.float32, device=table.device)
+    scratch = ([torch.empty(p // TILE * SPLIT * c, dtype=torch.float32, device=table.device)]
+               if len(library.functions["gather_tile_sums_launch"]) == 8 else [])
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = library.load().gather_tile_sums_launch
+
+    def launch():
+        if fn(table.data_ptr(), m, c, idx.data_ptr(), p, out.data_ptr(),
+              *(t.data_ptr() for t in scratch), stream) != 0:
+            raise RuntimeError(f"{library.source} gather_tile_sums_launch failed")
+
+    return launch
 
 
 def experiment_checks(cfg, scene, view, cascade0):
@@ -430,8 +554,9 @@ def experiment_checks(cfg, scene, view, cascade0):
 
 
 def bench_raster_path(scene):
-    """Phase 10: (ms per raster by mode and label, launches by entry point,
-    problems) of tools/bench_raster's run() on the bench scene."""
+    """Phase 10: (ms per raster by mode and label, the step split by mode,
+    launches by entry point, problems) of tools/bench_raster's run() on the
+    bench scene."""
     import math
 
     from androidrenderer_tpu_torch.tools import bench_raster
@@ -460,6 +585,7 @@ def bench_raster_path(scene):
     )
     from androidrenderer_tpu_torch.ops.raster.raster import record_bboxes
 
+    split = {}
     for mode in modes:
         mat, w, h, depth_only, affine = bench_raster.bench_view(scene, mode)
 
@@ -477,7 +603,10 @@ def bench_raster_path(scene):
               f"raster (fused) {raster_ms:.3f} ms; {int(live.sum())} live records, "
               f"{int(area.sum())} bbox pixels, {int((area >= h * w // 4).sum())} records with a "
               f"bbox of a quarter of the target or more")
-    return times, launches, problems
+        site = raster_site(f"bench_raster {mode} raster", su, h, w, depth_only=depth_only,
+                           affine_z=affine)
+        split[mode] = dict(setup_ms=setup_ms, raster_ms=raster_ms, **site)
+    return times, split, launches, problems
 
 
 def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
@@ -622,8 +751,10 @@ def main(argv) -> int:
     if not (REPO / "androidrenderer_tpu_torch" / "csrc" / "raster.cu").is_file():
         return fail(f"androidrenderer_tpu_torch/ is not beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO))
+    from ctypes import c_int, c_longlong, c_void_p
+
     from androidrenderer_tpu_torch import init_device
-    from androidrenderer_tpu_torch.ops.cuda_build import load_all
+    from androidrenderer_tpu_torch.ops.cuda_build import Library, load_all
     from androidrenderer_tpu_torch.ops.gather import LIBRARY as GATHER_LIBRARY
     from androidrenderer_tpu_torch.ops.raster.raster import LIBRARY
 
@@ -637,10 +768,17 @@ def main(argv) -> int:
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(f"nvidia-smi: {smi}")
 
-    # 2. build, one nvcc for each source, both started together
-    load_all(LIBRARY, GATHER_LIBRARY)
-    for lib in (LIBRARY, GATHER_LIBRARY):
-        print(f"built {lib.path.relative_to(REPO)} for sm_90a in {lib.build_seconds:.1f} s")
+    # 2. build, one nvcc for each source, all started together
+    if "--parent-csrc" in argv:
+        parent = Path(argv[argv.index("--parent-csrc") + 1]).resolve()
+        PARENT["raster"] = Library(parent / "raster.cu", {"raster_launch": [
+            c_void_p, c_int, c_int, c_int, c_void_p, c_void_p, c_int, c_int, c_void_p, c_void_p,
+            c_void_p, c_void_p]})
+        PARENT["gather"] = Library(parent / "gather.cu", {"gather_tile_sums_launch": [
+            c_void_p, c_longlong, c_int, c_void_p, c_longlong, c_void_p, c_void_p]})
+    load_all(LIBRARY, GATHER_LIBRARY, *PARENT.values())
+    for lib in (LIBRARY, GATHER_LIBRARY, *PARENT.values()):
+        print(f"built {lib.source} for sm_90a in {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
@@ -706,7 +844,7 @@ def main(argv) -> int:
                     "or launched other than once per call")
 
     # 10. the raster microbench in each mode
-    bench_ms, path_launches["bench_raster"], problems = bench_raster_path(scene)
+    bench_ms, bench_split, path_launches["bench_raster"], problems = bench_raster_path(scene)
     if problems:
         return fail("bench_raster: " + "; ".join(problems))
     del scene
@@ -727,13 +865,20 @@ def main(argv) -> int:
         dict(result, launches=launched("rasterize"),
              max_abs_err=max(result["max_abs_err"], entry["rasterize"]["err"]),
              translucency_layer1_ms=entry["rasterize"]["ms"],
-             translucency_layer1_plain_ms=entry["rasterize"]["plain_ms"]),
+             translucency_layer1_kernel_ms=entry["rasterize"]["kernel_ms"],
+             translucency_layer1_parent_kernel_ms=entry["rasterize"]["parent_kernel_ms"],
+             translucency_layer1_plain_ms=entry["rasterize"]["plain_ms"],
+             translucency_layer1_bound_ms=entry["rasterize"]["bound_ms"]),
     ]
     def bench(label):
         return {mode: t[label] for mode, t in bench_ms.items()}
 
+    bench_split = {mode: {k: v for k, v in t.items() if k != "work"}
+                   for mode, t in bench_split.items()}
+
     def cascade(r):
-        return dict(cascade_ms=r["ms"], cascade_plain_ms=r["plain_ms"],
+        return dict(cascade_ms=r["ms"], cascade_kernel_ms=r["kernel_ms"],
+                    cascade_parent_kernel_ms=r["parent_kernel_ms"], cascade_plain_ms=r["plain_ms"],
                     cascade_bound_ms=r["bound_ms"], cascade_bound_by=r["bound_by"])
 
     touch, = studies["rasterize_touch"]
@@ -745,8 +890,10 @@ def main(argv) -> int:
          dict(bench_raster_ms=bench("binned8"))),
         ("raster_fused", ("rasterize_fused", "rasterize_hybrid"), fused,
          "androidrenderer_tpu/ops/raster/raster_fused.py:99",
-         dict(hybrid_ms=hybrid["ms"], hybrid_plain_ms=hybrid["plain_ms"],
-              hybrid_bound_ms=hybrid["bound_ms"], bench_raster_ms=bench("fused(prod)"))),
+         dict(hybrid_ms=hybrid["ms"], hybrid_kernel_ms=hybrid["kernel_ms"],
+              hybrid_parent_kernel_ms=hybrid["parent_kernel_ms"],
+              hybrid_plain_ms=hybrid["plain_ms"], hybrid_bound_ms=hybrid["bound_ms"],
+              bench_raster_ms=bench("fused(prod)"), bench_raster_split=bench_split)),
         ("raster_pallas", ("rasterize_pallas",), entry["rasterize_pallas"],
          "androidrenderer_tpu/ops/raster/raster_pallas.py:97", {}),
         ("raster_touch", ("rasterize_touch",), touch,
@@ -764,7 +911,8 @@ def main(argv) -> int:
             name=name, route="cuda", source="androidrenderer_tpu_torch/csrc/raster.cu",
             replaces=replaces, launches=launched(*names),
             max_abs_err=max(r["err"], errs.get(name, 0.0)),
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+            ms=r["ms"], kernel_ms=r["kernel_ms"], parent_kernel_ms=r["parent_kernel_ms"],
+            plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
             bound_by=r["bound_by"], library_ms=None, **extra,
         ))
     kernels.insert(4, gather)

@@ -10,7 +10,9 @@ The rasterizer is held bit-equal to ``rasterize_reference`` in every variant,
 through every entry point of the raster family (the design studies' included),
 and through the exact-alpha peel's z_limit layers on the bench scene at
 1920x1088; the gather-sum kernel is held to its plain version within rtol 2e-5;
-the ported raster microbench runs in each mode.
+the ported raster microbench runs in each mode. The span-walk's adversarial
+records (tests/test_torch_raster_spans.py) hold the kernel bit-equal to the
+plain version, and its work counts equal to the plain mirror's.
 """
 
 import numpy as np
@@ -251,3 +253,79 @@ def test_bench_raster_runs_each_mode(cuda_device, mode):
     assert set(times) == {"bitmask", "fused(prod)", "binned8", "subfold"}
     assert all(np.isfinite(t) and t > 0 for t in times.values())
     assert [f.launches - b for f, b in zip(fns, before)] == [8, 8, 8, 8]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sliver", "near_zero_a", "huge", "crosser", "one_pixel",
+                                  "one_pixel_stack", "planes"])
+def test_raster_kernel_adversarial_records(cuda_device, kind):
+    """The span walk's hard cases: the kernel bit-equal to the plain version, and
+    its work counts (units, pixels evaluated) equal to the plain mirror's."""
+    from androidrenderer_tpu_torch.ops.raster import pack_fused_records
+    from androidrenderer_tpu_torch.ops.raster.raster import (
+        prepare_raster, span_work, work_counts,
+    )
+    from test_torch_raster_spans import AH, AW, adversarial_setup
+
+    for seed in (0, 1, 2):
+        for double_sided in (True, False):
+            setup = adversarial_setup(kind, seed, double_sided, device=cuda_device)
+            for affine_z in (False, True):
+                kw = dict(affine_z=affine_z)
+                _assert_bit_equal(rasterize(setup, AH, AW, **kw),
+                                  rasterize_reference(setup, AH, AW, **kw))
+                rec = pack_fused_records(setup, affine_z=affine_z)
+                call = prepare_raster(rec, AH, AW, False, affine_z, None, None)
+                call.launch()
+                _assert_bit_equal(call.outputs, rasterize_reference(setup, AH, AW, **kw))
+                got = work_counts(call.counts)
+                want = span_work(rec, AH, AW)
+                assert got == want, (seed, double_sided, affine_z, got, want)
+
+
+@pytest.mark.cuda
+def test_raster_kernel_dead_and_empty_record_sets(cuda_device):
+    """No live record (all dead, or none at all): the kernel still clears and
+    resolves, in every variant."""
+    from androidrenderer_tpu_torch.ops.raster import TriangleSetup
+    from test_torch_raster_spans import AH, AW, adversarial_setup
+
+    setup = adversarial_setup("planes", 5, True, device=cuda_device)
+    dead = setup._replace(valid=torch.zeros_like(setup.valid))
+    empty = TriangleSetup(*(x[:0] for x in setup))
+    for s in (dead, empty):
+        depth, vis = rasterize(s, AH, AW)
+        torch.cuda.synchronize()
+        assert not depth.any() and (vis == -1).all()
+        assert not rasterize(s, AH, AW, depth_only=True, affine_z=True).any()
+        zl = torch.full((AH, AW), 0.5, device=cuda_device)
+        _assert_bit_equal(rasterize(s, AH, AW, z_limit=zl), rasterize_reference(s, AH, AW))
+
+
+@pytest.mark.cuda
+def test_gather_kernel_scalar_path_and_bad_index(cuda_device):
+    """The 4-byte path (C not a multiple of 4, or a table off 16-byte alignment)
+    against the plain version, run to run bit-equal; an index outside [0, M)
+    makes its own tile NaN and leaves the others right."""
+    from androidrenderer_tpu_torch.ops.gather import gather_tile_sums, gather_tile_sums_reference
+    from androidrenderer_tpu_torch.tools.microbench_pallas_gather import make_inputs
+
+    for rows, width, offset in ((1 << 18, 7, 0), (5000, 32, 1), (5000, 300, 1)):
+        table, idx = make_inputs(rows, width, cuda_device, lookups=16 * 2048, seed=rows + width)
+        if offset:  # the same values, 4 bytes off 16-byte alignment
+            flat = torch.empty(rows * width + offset, device=cuda_device)
+            flat[offset:] = table.reshape(-1)
+            table = flat[offset:].view(rows, width)
+        got = gather_tile_sums(table, idx)
+        torch.testing.assert_close(got, gather_tile_sums_reference(table, idx), rtol=2e-5,
+                                   atol=0.0)
+        assert torch.equal(got, gather_tile_sums(table, idx))
+    bad = idx.clone()
+    bad[3 * 2048 + 17] = rows
+    got = gather_tile_sums(table, bad)
+    torch.cuda.synchronize()
+    assert torch.isnan(got[3, 0]).all()
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=cuda_device)
+    keep[3] = False
+    assert torch.equal(got[keep], gather_tile_sums(table, idx)[keep])
+    assert not got[:, 1:].any()
