@@ -7,10 +7,12 @@ slab/unroll counts, tile sizes) are kept for that reason and ignored here.
 ``RenderParams`` holds the continuous parameters as plain Python floats: PyTorch
 runs eagerly, so there is no traced/static split to respect.
 
-The port renders the JAX frame with GI, AO and AA off: the bench's raster-only
-frame (``raster_only_config``) and the headless CLI's default frame at the
-bench's size (``default_frame_config``), with the exact alpha peel when
-``alpha_bitmap`` is off; ``render.frame`` rejects the switches it does not carry.
+The port renders the frame bench.py times (``parity_frame_config``: LPV GI,
+half-rate SSAO, TAAU), the bench's raster-only frame (``raster_only_config``)
+and the headless CLI's default frame at the bench's size
+(``default_frame_config``), with the exact alpha peel when ``alpha_bitmap`` is
+off; ``render.frame`` rejects the switches it does not carry (ray tracing,
+probes, VRSAA).
 """
 
 from __future__ import annotations
@@ -176,25 +178,38 @@ class RenderConfig:
         return dataclasses.replace(self, **kwargs)
 
 
-def raster_only_config(width: int = 1920, height: int = 1088, **overrides) -> RenderConfig:
-    """The bench's raster-only frame (bench.py:85-129, then :192-195): the parity
-    config with GI, AO and AA off, rendered at native resolution. The defaults
+def parity_frame_config(
+    width: int = 1920, height: int = 1088, render_width: int = 1280, render_height: int = 736,
+    **overrides,
+) -> RenderConfig:
+    """The frame bench.py times (bench.py:83-129), field for field: rendered at
+    1280x736 and temporally upscaled to 1920x1088 (FSR3 Quality's ratio), with
+    LPV GI (staggered, ``lpv_update_budget=1``), half-rate SSAO and TAA, the
+    staggered CSM (``shadow_update_budget=1``) and alpha bitmaps. The defaults
     of ``RenderConfig`` turn on occlusion culling and translucency; this sets
     them off exactly as bench.py does."""
     cfg = RenderConfig(
-        render_width=width, render_height=height,
+        render_width=render_width, render_height=render_height,
         output_width=width, output_height=height,
         tile_height=32, tile_width=128,
         max_tris_per_tile=4096,
         alpha_masking=True,
         translucency=False,
         use_normal_maps=True, use_mr_textures=True, use_emission=False,
-        gi_mode=GIMode.OFF, ao_mode=AOMode.OFF, aa_mode=AAMode.OFF,
+        gi_mode=GIMode.LPV, ao_mode=AOMode.SSAO, aa_mode=AAMode.TAA,
         occlusion_culling=False,
         lpv_update_budget=1,
         shadow_update_budget=1,
     )
     return cfg.replace(**overrides)
+
+
+def raster_only_config(width: int = 1920, height: int = 1088, **overrides) -> RenderConfig:
+    """The bench's raster-only frame (bench.py:192-195): the parity config with
+    GI, AO and AA off, rendered at native resolution."""
+    return parity_frame_config(
+        width, height, width, height, gi_mode=GIMode.OFF, ao_mode=AOMode.OFF, aa_mode=AAMode.OFF,
+    ).replace(**overrides)
 
 
 def default_frame_config(width: int = 1920, height: int = 1088, **overrides) -> RenderConfig:

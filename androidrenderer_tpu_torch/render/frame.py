@@ -1,18 +1,22 @@
-"""The frame function — the raster slice of SceneRenderer::render().
+"""The frame function — SceneRenderer::render() on one device.
 
-Phase sequence (the JAX package's render/frame.py, with GI, AO and AA off):
+Phase sequence (the JAX package's render/frame.py, single device):
 
     frustum cull -> corner-table triangle setup -> CUDA raster with in-kernel
     alpha test [or two-phase HiZ occlusion: raster last frame's visible
     primitives, build the HiZ pyramid, re-test every sphere, raster the newly
     visible, merge] -> [exact alpha-test peel of the masked triangles] ->
-    gbuffer resolve -> sky -> staggered CSM + packed 2x2 PCF -> sun BRDF ->
-    [translucency: peeled BLEND layers, back-to-front composite] -> bloom ->
-    Reinhard -> u8
+    gbuffer resolve -> sky -> staggered CSM + packed 2x2 PCF -> [half-rate
+    SSAO + joint-bilateral 2x upsample] -> [LPV GI: staggered cascade rebuild
+    (RSM on the proxy through the CUDA raster -> VPLs -> SH inject ->
+    propagate), half-rate apply + upsample] -> sun BRDF + GI * AO ->
+    [translucency: peeled BLEND layers, back-to-front composite] -> [TAA, or
+    TAAU to the output resolution] -> bloom -> Reinhard -> u8
 
 Every tensor of the frame stays on the scene's device. Switches the port does
-not carry yet raise NotImplementedError naming their item in ROADMAP.md's port
-queue.
+not carry yet (ray tracing, probes, VRSAA) raise NotImplementedError naming
+their item in ROADMAP.md's port queue. The JAX frame's profiling stubs
+(``debug_stub_*``) and TPU tunables are kept in RenderConfig without effect.
 """
 
 from __future__ import annotations
@@ -30,25 +34,30 @@ from androidrenderer_tpu_torch.config import (
 )
 from androidrenderer_tpu_torch.ops import bloom as bloom_ops
 from androidrenderer_tpu_torch.ops import culling, lighting, post, sky
+from androidrenderer_tpu_torch.ops import lpv as lpv_ops
 from androidrenderer_tpu_torch.ops import shadow as shadow_ops
+from androidrenderer_tpu_torch.ops import taa as taa_ops
 from androidrenderer_tpu_torch.ops.gbuffer import GBuffer, resolve_gbuffer
 from androidrenderer_tpu_torch.ops.raster import rasterize, triangle_setup_corners
 from androidrenderer_tpu_torch.ops.raster.masked import (
     _sample_alpha, pack_alpha_planes, rasterize_masked_peeled,
 )
-from androidrenderer_tpu_torch.ops.taa import upscale_bilinear
+from androidrenderer_tpu_torch.ops.upsample import bilateral_upsample_2x
 from androidrenderer_tpu_torch.render.temporal import TemporalState
+from androidrenderer_tpu_torch.scene.proxy import swap_in_proxy
 from androidrenderer_tpu_torch.scene.scene import SceneArrays
 
 
 class FrameOutputs(NamedTuple):
     image: torch.Tensor  # (H, W, 3) u8 display-ready
-    hdr: torch.Tensor  # (H, W, 3) f32 lit scene (pre-tonemap)
+    hdr: torch.Tensor  # (OH, OW, 3) f32 lit scene (pre-tonemap; output res after TAAU)
     depth: torch.Tensor  # (H, W) f32
     visibility: torch.Tensor  # (H, W) i32
     gbuffer: GBuffer
     # CSM cascade data the frame sampled with (None when shadows are off).
     csm: object = None
+    # (H, W, 2) uv-space reprojection motion (None unless TAA ran).
+    motion: object = None
 
 
 _QUEUE = "ROADMAP.md, port queue"
@@ -57,9 +66,6 @@ _QUEUE = "ROADMAP.md, port queue"
 def check_slice(config: RenderConfig) -> None:
     """Raise NotImplementedError for every switch the port does not carry yet."""
     unported = [
-        (config.ao_mode == AOMode.SSAO, f"ao_mode=SSAO ({_QUEUE} item 2: SSAO at half rate)"),
-        (config.gi_mode == GIMode.LPV, f"gi_mode=LPV ({_QUEUE} item 3: LPV with RSM)"),
-        (config.aa_mode == AAMode.TAA, f"aa_mode=TAA ({_QUEUE} item 4: TAAU)"),
         (config.gi_mode in (GIMode.RT, GIMode.PROBES),
          f"gi_mode={config.gi_mode.name} ({_QUEUE} item 6: RT)"),
         (config.ao_mode == AOMode.RT, f"ao_mode=RT ({_QUEUE} item 6: RT)"),
@@ -216,6 +222,96 @@ def _shadows(scene, inv_view, p00, p11, z_near, params, temporal, config, gbuf, 
     return shadow, cascades, temporal
 
 
+def _half_rate(config: RenderConfig, h: int, w: int) -> bool:
+    """Screen-space GI and AO shade the [::2, ::2] grid (config.half_rate_gi)."""
+    return config.half_rate_gi and h % 2 == 0 and w % 2 == 0
+
+
+def _ssao(cam_pos, z_near, params, config, gbuf, depth):
+    """(H, W, 1) AO: the estimator on the half grid, reconstructed by the joint
+    bilateral 2x upsample (the JAX frame's SSAO block, single device)."""
+    h, w = depth.shape
+    half = _half_rate(config, h, w)
+
+    def sub(a):
+        return a[::2, ::2] if half else a
+
+    d_h, n_h = sub(depth), sub(gbuf.normal)
+    gb_h = gbuf._replace(world_position=sub(gbuf.world_position), normal=n_h,
+                         valid=sub(gbuf.valid), depth=d_h)
+    ao = lighting.ssao(
+        gb_h, cam_pos, z_near,
+        radius=params.ssao_radius, bias=params.ssao_bias, intensity=params.ssao_intensity,
+    )
+    return bilateral_upsample_2x(ao, d_h, n_h, depth, gbuf.normal) if half else ao
+
+
+def _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth):
+    """(GI (H, W, 3), next temporal state): the LPV volumes rebuilt (one cascade
+    round-robin with ``lpv_update_budget``, else all), each cascade's RSM a
+    launch of the CUDA rasterizer on the proxy mesh, then the apply on the half
+    grid, reconstructed by the joint bilateral 2x upsample and modulated by the
+    full-resolution base color."""
+    h, w = depth.shape
+    cam_forward = -inv_view[:3, 2]
+    # Scene-view depth surfels for the geometry volume (every 8th pixel).
+    surfels = (gbuf.world_position[::8, ::8].reshape(-1, 3),
+               gbuf.normal[::8, ::8].reshape(-1, 3), gbuf.valid[::8, ::8].reshape(-1))
+    # The RSMs rasterize the vertex-clustered proxy: their texels are meters wide.
+    gi_scene = swap_in_proxy(scene) if config.rsm_proxy else scene
+    args = (config.lpv_num_cascades, config.lpv_resolution, config.lpv_cell_size,
+            config.lpv_rsm_resolution, config.lpv_num_propagation_steps,
+            config.lpv_behind_camera_percent)
+    kw = dict(scene_view_surfels=surfels, use_base_textures=config.use_base_textures)
+    if 0 < config.lpv_update_budget < config.lpv_num_cascades:
+        want = (config.lpv_num_cascades, 3, 4) + (config.lpv_resolution,) * 3
+        if tuple(temporal.lpv.radiance.shape) != want:
+            raise ValueError(
+                f"TemporalState.lpv radiance {tuple(temporal.lpv.radiance.shape)} != {want}: "
+                "build the state with temporal_state_for(config)"
+            )
+        volumes = lpv_ops.update_lpv_staggered(
+            gi_scene, cam_pos, cam_forward, rasterize, temporal.lpv, temporal.frame_index,
+            *args, update_budget=config.lpv_update_budget, **kw,
+        )
+        temporal = temporal._replace(lpv=volumes)
+    else:
+        volumes = lpv_ops.build_lpv(gi_scene, cam_pos, cam_forward, rasterize, *args, **kw)
+    # float32 product, as the reference's parameters are float32 scalars.
+    exposure = float(np.float32(params.lpv_exposure) * np.float32(params.sun_exposure))
+    if not _half_rate(config, h, w):
+        gi = lpv_ops.apply_lpv(volumes, gbuf.world_position, gbuf.normal, gbuf.base_color,
+                               gbuf.valid, exposure)
+        return gi, temporal
+    wp_h, n_h = gbuf.world_position[::2, ::2], gbuf.normal[::2, ::2]
+    irr_h = lpv_ops.apply_lpv(volumes, wp_h, n_h, torch.ones_like(wp_h), gbuf.valid[::2, ::2],
+                              exposure)
+    irr = bilateral_upsample_2x(irr_h, depth[::2, ::2], n_h, depth, gbuf.normal)
+    return irr * gbuf.base_color, temporal
+
+
+def _taa(view, temporal, config, gbuf, lit):
+    """(resolved lit at output resolution, motion, next temporal state): TAAU
+    when the frame renders below its output resolution, else TAA."""
+    dev = lit.device
+    oh, ow = config.output_height, config.output_width
+    if tuple(temporal.taa_history.shape) != (oh, ow, 3):
+        raise ValueError(
+            f"TemporalState.taa_history {tuple(temporal.taa_history.shape)} != {(oh, ow, 3)}: "
+            "build the state with temporal_state_for(config)"
+        )
+    mv = taa_ops.motion_vectors(gbuf.world_position, gbuf.valid, _f32(view.last_view_proj, dev),
+                                _f32(view.unjittered_view_proj, dev))
+    if (config.render_height, config.render_width) != (oh, ow):
+        lit, history = taa_ops.taau_resolve(lit, temporal.taa_history, temporal.taa_valid, mv,
+                                            view.jitter, oh, ow, pack8=config.taa_pack8)
+    else:
+        lit, history = taa_ops.taa_resolve(lit, temporal.taa_history, temporal.taa_valid, mv,
+                                           pack8=config.taa_pack8)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    return lit, mv, temporal._replace(taa_history=history, taa_valid=valid)
+
+
 @torch.no_grad()
 def render_frame(
     scene: SceneArrays,
@@ -232,6 +328,7 @@ def render_frame(
     dev = scene.positions.device
     h, w = config.render_height, config.render_width
     inv_view = _f32(view.inverse_view, dev)
+    cam_pos = _f32(view.position, dev)
     z_near = float(view.z_near)
     p00 = float(view.projection[0, 0])
     p11 = float(view.projection[1, 1])
@@ -274,17 +371,26 @@ def render_frame(
             shadow, cascades, temporal = _shadows(
                 scene, inv_view, p00, p11, z_near, params, temporal, config, gbuf, depth,
             )
+    ao = gi = motion = None
+    if config.ao_mode == AOMode.SSAO:
+        with record_function("frame/ssao"):
+            ao = _ssao(cam_pos, z_near, params, config, gbuf, depth)
+    if config.gi_mode == GIMode.LPV:
+        with record_function("frame/lpv"):
+            gi, temporal = _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth)
     with record_function("frame/shade"):
         direct = lighting.sun_lighting(
-            gbuf, _f32(view.position, dev), scene.sun_direction, scene.sun_color, shadow,
-            params.sun_exposure,
+            gbuf, cam_pos, scene.sun_direction, scene.sun_color, shadow, params.sun_exposure,
         )
-        lit = lighting.compose_lit_scene(gbuf, direct, gi=None, ao=None, sky=sky_img)
+        lit = lighting.compose_lit_scene(gbuf, direct, gi=gi, ao=ao, sky=sky_img)
     if config.translucency:
         with record_function("frame/translucency"):
             lit = _translucency(scene, view, params, config, setup, depth, lit, flags)
+    if config.aa_mode == AAMode.TAA:
+        with record_function("frame/taa"):
+            lit, motion, temporal = _taa(view, temporal, config, gbuf, lit)
     with record_function("frame/post"):
-        display = upscale_bilinear(lit, config.output_height, config.output_width)
+        display = taa_ops.upscale_bilinear(lit, config.output_height, config.output_width)
         bloom_tex = (
             bloom_ops.bloom_chain(display, config.bloom_num_mips) if config.bloom else None
         )
@@ -293,6 +399,7 @@ def render_frame(
     next_temporal = temporal._replace(frame_index=temporal.frame_index + 1)
     outputs = FrameOutputs(
         image=image, hdr=lit, depth=depth, visibility=vis, gbuffer=gbuf, csm=cascades,
+        motion=motion,
     )
     return outputs, next_temporal
 

@@ -1,8 +1,9 @@
-"""Proxy (vertex-clustered) meshes for the far shadow cascades.
+"""Proxy (vertex-clustered) meshes for the far shadow cascades and the LPV's RSMs.
 
 Far cascades cover 32-128 m, where one shadow texel is wider than the proxy's
 0.25 m cluster cell, so they rasterize this decimated copy of the scene instead
-of full geometry (the JAX package's scene/proxy.py; the divergence from the
+of full geometry, as do the LPV's 128^2 reflective shadow maps through
+``swap_in_proxy`` (the JAX package's scene/proxy.py; the divergence from the
 reference renderer is documented in docs/PARITY.md).
 
 Vertex clustering (Rossignac-Borrel): snap vertices to a uniform grid of
@@ -130,3 +131,34 @@ def build_proxy_arrays(
         )[ptri_pad],
     )
     return arrays, host
+
+
+def swap_in_proxy(scene):
+    """SceneArrays view whose GEOMETRY fields are the proxy's.
+
+    Raster + resolve paths (the LPV's reflective shadow maps) consume the result
+    exactly like a full scene: materials, textures and sun pass through
+    untouched. Tangents are zeroed (proxy resolves never normal-map), alpha
+    modes are opaque (masked geometry is solid in the proxy) and every alpha
+    bitmap is all ones; each new tensor has the scene's dtype and device."""
+    p = scene.proxy
+    vp = p.positions.shape[0]
+    nt = p.tri_indices.shape[0]
+    dev = p.positions.device
+    return scene._replace(
+        positions=p.positions,
+        normals=p.normals,
+        tangents=torch.zeros((vp, 4), dtype=scene.tangents.dtype, device=dev),
+        uvs=p.uvs,
+        colors=p.colors,
+        tri_indices=p.tri_indices,
+        tri_material=p.tri_material,
+        tri_primitive=torch.zeros((nt,), dtype=scene.tri_primitive.dtype, device=dev),
+        tri_double_sided=p.tri_double_sided,
+        tri_alpha_mode=torch.zeros((nt,), dtype=scene.tri_alpha_mode.dtype, device=dev),
+        tri_alpha_grid=torch.full((nt, 8), -1, dtype=scene.tri_alpha_grid.dtype, device=dev),
+        tri_valid=p.tri_valid,
+        tri_corner_pos=p.corners,
+        tri_attr_corners=p.attr_corners,
+        tri_consts=p.consts,
+    )

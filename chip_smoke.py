@@ -48,28 +48,38 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    exactly 6 per frame for A (occlusion phases 1 and 2, 2 translucent layers,
    cascade 0, one far cascade) and 9 for B (3 more, the peel's rasterize_binned);
    after warm-up A's depth and visibility must equal A's without occlusion;
-8. the gather microbench (tools/microbench_pallas_gather.py's main) at its
+8. the parity frame, the frame bench.py times (config.parity_frame_config: LPV GI
+   with one 128^2 RSM per frame on the proxy mesh, half-rate SSAO, TAAU from
+   1280x736 to 1920x1088): first each LPV cascade's RSM through rasterize
+   against the plain version (bit-equal, the derived ortho setup on the proxy,
+   with call ms, kernel-only time, bound and work counts as in phase 3); then
+   the frame timed as phase 4, with exactly 4 raster launches per frame (main
+   view, cascade 0, one far cascade, one RSM), a finite non-constant image and
+   HDR, and an HDR that differs from the same frame with GI off; then the
+   parity frame at 128^2 (192^2 output) on the card and on the CPU, 3 chained
+   frames, within the thresholds written beside the call;
+9. the gather microbench (tools/microbench_pallas_gather.py's main) at its
    default shape (M = 2^18, C = 32, P = 942,080 seeded indices): the kernel,
    its plain version and embedding_bag, CUDA-event medians of 5; then the
    kernel against the plain version within rtol 2e-5, deterministic run to
    run, its kernel-only time and its bound;
-9. the raster design studies' entry points (tools/experiments) at the bench
+10. the raster design studies' entry points (tools/experiments) at the bench
    scene's shapes: rasterize_touch at the 1088x1920 main view, rasterize_lanes
    and rasterize_subfold at the main view with the alpha grid and at the 1024^2
    cascade (depth_only + affine_z); each output bit-equal to the plain version,
    CUDA-event medians of 5;
-10. the raster microbench (tools/bench_raster.py's run) on the bench scene in
+11. the raster microbench (tools/bench_raster.py's run) on the bench scene in
    each mode (screen, csm, rsm) with fused, binned8 and subfold, chain 3; then
    each mode's step split: transform + setup, and the raster per call and
    kernel-only, with its work counts;
-11. A and B at 128^2, card against CPU, with phase 5's thresholds;
-12. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+12. A and B at 128^2, card against CPU, with phase 5's thresholds;
+13. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
    the raster family, #5 the gather, each with its call time ``ms``, its
-   kernel-only time ``kernel_ms`` and its bound), the card line, and the final
-   JSON line.
+   kernel-only time ``kernel_ms`` and its bound; #1 also at the RSM call site,
+   ``rsm_*``), the card line, and the final JSON line.
 
-Launch counts are read per path (the frames of phases 4 and 7, the gather tool
-of phase 8, the entry-point calls of phase 9, the microbench of phase 10): every
+Launch counts are read per path (the frames of phases 4, 7 and 8, the gather tool
+of phase 9, the entry-point calls of phase 10, the microbench of phase 11): every
 count is set to 0 just before a path runs and read just after, so the launches
 of the comparisons never count.
 
@@ -441,7 +451,7 @@ def entry_points():
 
 
 def gather_checks():
-    """Phase 8: (result dict, ok). The path is the gather tool's main() at its
+    """Phase 9: (result dict, ok). The path is the gather tool's main() at its
     default shape; its launches are counted, the comparison's are not."""
     import torch
 
@@ -520,7 +530,7 @@ def gather_launch(library, table, idx):
 
 
 def experiment_checks(cfg, scene, view, cascade0):
-    """Phase 9: (results by entry point, launches by entry point, ok). The path
+    """Phase 10: (results by entry point, launches by entry point, ok). The path
     is one call of each entry point at its shapes, with every count set to 0
     just before; the comparison and the timing come after the counts are read."""
     import torch
@@ -554,7 +564,7 @@ def experiment_checks(cfg, scene, view, cascade0):
 
 
 def bench_raster_path(scene):
-    """Phase 10: (ms per raster by mode and label, the step split by mode,
+    """Phase 11: (ms per raster by mode and label, the step split by mode,
     launches by entry point, problems) of tools/bench_raster's run() on the
     bench scene."""
     import math
@@ -610,7 +620,7 @@ def bench_raster_path(scene):
 
 
 def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
-    """Phases 4 and 7: (median ms/frame, launches by entry point, frames, failed
+    """Phases 4, 7 and 8: (median ms/frame, launches by entry point, frames, failed
     checks, last outputs, temporal state). ``per_frame`` is the launches each
     entry point must make per frame; every other entry point must make none."""
     import numpy as np
@@ -702,26 +712,40 @@ def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
     return ms, launches, frames, problems, out, temp
 
 
-def card_vs_cpu(label="raster-only", overrides=None, curtains=False):
-    """Phases 5 and 8: a 128^2 courtyard frame on the card and on the CPU.
-    ``overrides`` (RenderConfig fields) turn the raster-only config into A or B."""
+def card_vs_cpu(label="raster-only", overrides=None, curtains=False, cfg=None,
+                max_far=0.005, max_depth=0.005, moving=False):
+    """Phases 5, 8 and 12: a 128^2 courtyard frame on the card and on the CPU, 3
+    chained frames: (the largest share of pixels off by more than one u8 step,
+    the largest share of depths differing, each within its bound).
+    ``overrides`` (RenderConfig fields) turn the raster-only config into A or B;
+    ``cfg`` replaces it (the parity frame renders 128^2 into a 192^2 output).
+    ``moving``: the camera steps and turns each frame with that frame's TAA
+    jitter, so the motion vectors and the history reprojection do work."""
     import numpy as np
-    import torch
 
-    from androidrenderer_tpu_torch.camera import Camera
+    from androidrenderer_tpu_torch.camera import Camera, taa_jitter
     from androidrenderer_tpu_torch.config import RenderParams, raster_only_config
     from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
     from androidrenderer_tpu_torch.scene.procedural import courtyard_scene
+    from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
 
     n = 128
-    cfg = raster_only_config(n, n, shadow_cascade_resolution=128, **(overrides or {}))
-    cam = Camera(fov_degrees=cfg.fov_degrees, aspect=1.0, z_near=cfg.z_near,
-                 render_resolution=(n, n))
+    if cfg is None:
+        cfg = raster_only_config(n, n, shadow_cascade_resolution=128, **(overrides or {}))
+    cam = Camera(fov_degrees=cfg.fov_degrees, aspect=cfg.output_width / cfg.output_height,
+                 z_near=cfg.z_near, render_resolution=(cfg.render_width, cfg.render_height))
     cam.set_position([0.0, 1.7, 6.0])
     cam.pitch, cam.yaw = -0.05, np.pi
-    view = cam.view_data()
+    views = []
+    for i in range(3):
+        if moving:
+            cam.set_jitter(taa_jitter(i + 1))
+        views.append(cam.view_data())
+        if moving:
+            cam.end_frame()
+            cam.translate_local([0.04, 0.0, -0.15])
+            cam.rotate(0.004, -0.01)
     leaves, _ = courtyard_scene(curtains=curtains).bake()
-    from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
 
     outs = {}
     for dev in ("cuda", "cpu"):
@@ -729,7 +753,7 @@ def card_vs_cpu(label="raster-only", overrides=None, curtains=False):
         renderer = make_renderer(cfg)
         temp = temporal_state_for(cfg, device=dev)
         frames = []
-        for _ in range(3):
+        for view in views:
             out, temp = renderer(scene, view, RenderParams.default(), temp)
             frames.append((out.image.cpu().numpy(), out.depth.cpu().numpy()))
         outs[dev] = frames
@@ -738,9 +762,89 @@ def card_vs_cpu(label="raster-only", overrides=None, curtains=False):
     far = max(float((np.abs(a[0].astype(int) - b[0].astype(int)) > 1).mean()) for a, b in pairs)
     dep_d = max(float(np.abs(a[1] - b[1]).max()) for a, b in pairs)
     dep_share = max(float((a[1] != b[1]).mean()) for a, b in pairs)
-    print(f"card vs CPU, {label} 128^2 courtyard, 3 frames: max|d image|={img_d} "
-          f"(share > 1 step {far:.5f}), max|d depth|={dep_d} (share differing {dep_share:.5f})")
-    return far <= 0.005 and dep_share <= 0.005
+    print(f"card vs CPU, {label} {cfg.render_width}^2 courtyard, 3 frames: max|d image|={img_d} "
+          f"(share > 1 step {far:.5f}, bound {max_far}), max|d depth|={dep_d} "
+          f"(share differing {dep_share:.5f}, bound {max_depth})")
+    return far <= max_far and dep_share <= max_depth
+
+
+def parity_view(cfg):
+    """The bench camera (bench.py:134-144) at the parity frame's render resolution."""
+    import numpy as np
+
+    from androidrenderer_tpu_torch.camera import Camera
+
+    cam = Camera(fov_degrees=cfg.fov_degrees, aspect=cfg.output_width / cfg.output_height,
+                 z_near=cfg.z_near, render_resolution=(cfg.render_width, cfg.render_height))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    return cam.view_data()
+
+
+def rsm_checks(cfg, scene, view):
+    """Phase 8's RSM call site: every LPV cascade's RSM of the proxy mesh, its
+    setup derived from the canonical one as the frame derives it, through
+    rasterize against the plain version: (cascade 0's results, ok)."""
+    import torch
+
+    from androidrenderer_tpu_torch.ops import lpv
+    from androidrenderer_tpu_torch.scene.proxy import swap_in_proxy
+
+    dev = scene.positions.device
+    gi_scene = swap_in_proxy(scene)
+    inv_view = torch.as_tensor(view.inverse_view, device=dev)
+    mins, cells = lpv.cascade_origins(
+        torch.as_tensor(view.position, device=dev), -inv_view[:3, 2], cfg.lpv_num_cascades,
+        cfg.lpv_resolution, cfg.lpv_cell_size, cfg.lpv_behind_camera_percent,
+    )
+    res = cfg.lpv_rsm_resolution
+    m_canon, setup_rsm, centers, radii = lpv._canonical_rsm_setup(
+        gi_scene, mins, cells, cfg.lpv_resolution, res)
+    rasterize = entry_points()["rasterize"]
+    results, ok = [], True
+    for k in range(cfg.lpv_num_cascades):
+        setup = lpv.rsm_setup(gi_scene, setup_rsm, m_canon, centers[k], radii[k], res)
+        (_, vis), r = compare(f"rasterize RSM cascade {k} (proxy)", rasterize, setup, res, res)
+        ok &= r["eq"] and bool((vis >= 0).any())
+        results.append(r)
+    return results[0], ok
+
+
+def parity_phase(scene, profile: bool, card: str):
+    """Phase 8: (the RSM call site's results, launches by entry point, failed
+    checks) of the parity frame on the bench scene."""
+    from androidrenderer_tpu_torch.config import GIMode, RenderParams, parity_frame_config
+    from androidrenderer_tpu_torch.render import make_renderer
+
+    cfg = parity_frame_config()
+    view = parity_view(cfg)
+    rsm, ok = rsm_checks(cfg, scene, view)
+    if not ok:
+        return rsm, {}, ["the kernel and the plain version disagree at the RSM call site"]
+    ms, launches, _, problems, out, temp = run_frames(
+        "parity", cfg, scene, view, profile, {"rasterize": 4})
+    lit, _ = make_renderer(cfg)(scene, view, RenderParams.default(), temp)
+    unlit, _ = make_renderer(cfg.replace(gi_mode=GIMode.OFF))(
+        scene, view, RenderParams.default(), temp)
+    gi_d = (lit.hdr - unlit.hdr).abs()
+    print(f"parity frame with GI against without, from one state: max|d hdr|="
+          f"{gi_d.max().item():.6g}, mean {gi_d.mean().item():.6g}; hdr mean "
+          f"{lit.hdr.mean().item():.6g}, hdr {tuple(lit.hdr.shape)}")
+    if not gi_d.max().item() > 0:
+        problems.append("GI changes nothing in the HDR")
+    if float(out.hdr.amax()) == float(out.hdr.amin()):
+        problems.append("HDR is constant")
+    print(f"parity_frame_ms: {ms:.3f} ({card})")
+    # Phase 5's bounds, the camera moving and jittered. Measured on an H100
+    # with a static camera: no pixel off by more than one u8 step and no depth
+    # differing (the SSAO, LPV and TAAU stages are float math that rounds alike
+    # on both devices at this size; PERF.md).
+    n = 128
+    small = parity_frame_config(192, 192, n, n, shadow_cascade_resolution=n)
+    if not card_vs_cpu("parity (camera moving, jittered)", cfg=small, max_far=0.005,
+                       max_depth=0.005, moving=True):
+        problems.append("the 128^2 parity frames on the card and the CPU disagree")
+    return rsm, launches, problems
 
 
 def main(argv) -> int:
@@ -832,43 +936,51 @@ def main(argv) -> int:
         path_launches[label] = launches
         print(f"frame_{label}_ms: {ms:.3f} ({kind}; {smi})")
 
-    # 8. the gather microbench
+    # 8. the parity frame
+    rsm, path_launches["parity"], problems = parity_phase(scene, profile, f"{kind}; {smi}")
+    if problems:
+        return fail("parity frame: " + "; ".join(problems))
+
+    # 9. the gather microbench
     gather, ok = gather_checks()
     if not ok:
         return fail("the gather kernel and its plain version disagree at the tool's shape")
 
-    # 9. the design studies' entry points at the bench shapes
+    # 10. the design studies' entry points at the bench shapes
     studies, path_launches["experiments"], ok = experiment_checks(cfg, scene, view, cascade0)
     if not ok:
         return fail("a design study's entry point and the plain version disagree, "
                     "or launched other than once per call")
 
-    # 10. the raster microbench in each mode
+    # 11. the raster microbench in each mode
     bench_ms, bench_split, path_launches["bench_raster"], problems = bench_raster_path(scene)
     if problems:
         return fail("bench_raster: " + "; ".join(problems))
     del scene
     torch.cuda.empty_cache()
 
-    # 11. A and B at 128^2, card vs CPU
+    # 12. A and B at 128^2, card vs CPU
     for label, overrides in (("A", {}), ("B", {"alpha_bitmap": False})):
         overrides = dict(occlusion_culling=True, translucency=True, **overrides)
         if not card_vs_cpu(f"frame {label}", overrides, curtains=True):
             return fail(f"frame {label}: card and CPU frames disagree")
 
-    # 12. results
+    # 13. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 
     fused, hybrid = entry["rasterize_fused"], entry["rasterize_hybrid"]
     kernels = [
         dict(result, launches=launched("rasterize"),
-             max_abs_err=max(result["max_abs_err"], entry["rasterize"]["err"]),
+             max_abs_err=max(result["max_abs_err"], entry["rasterize"]["err"], rsm["err"]),
              translucency_layer1_ms=entry["rasterize"]["ms"],
              translucency_layer1_kernel_ms=entry["rasterize"]["kernel_ms"],
              translucency_layer1_parent_kernel_ms=entry["rasterize"]["parent_kernel_ms"],
              translucency_layer1_plain_ms=entry["rasterize"]["plain_ms"],
-             translucency_layer1_bound_ms=entry["rasterize"]["bound_ms"]),
+             translucency_layer1_bound_ms=entry["rasterize"]["bound_ms"],
+             rsm_ms=rsm["ms"], rsm_kernel_ms=rsm["kernel_ms"],
+             rsm_parent_kernel_ms=rsm["parent_kernel_ms"], rsm_plain_ms=rsm["plain_ms"],
+             rsm_bound_ms=rsm["bound_ms"], rsm_bound_by=rsm["bound_by"]),
     ]
     def bench(label):
         return {mode: t[label] for mode, t in bench_ms.items()}

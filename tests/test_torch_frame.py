@@ -5,8 +5,10 @@ JAX bake) and render the raster-only config at 128^2 with 4 cascades of 128^2
 and ``shadow_update_budget=1`` over 3 chained frames. The JAX frame runs its
 TPU branch through Pallas interpret mode (``pallas_interpret=True``), as its
 own tests do on the CPU; its renderer is built once per module because one
-compile takes about half a minute. The port runs on the CPU, where its
-rasterizer is the plain PyTorch version.
+compile takes about half a minute: both scenes' arrays are padded to common
+shapes (rows that no valid triangle, primitive or material reaches), so one
+compile serves both. The port runs on the CPU, where its rasterizer is the
+plain PyTorch version.
 
 Held: depth and visibility under the raster contract (widened for the two
 programs' setup rounding); the u8 image within one step on >= 99.5% of pixels
@@ -73,15 +75,47 @@ def camera_for(scene_name: str):
     return cam.view_data()
 
 
+SCENES = ("cornell_scene", "courtyard_scene")
+# Fill of the padding rows where zero is not the bake's own padding value.
+_FILL = {"colors": 1, "proxy.colors": 1, "tri_alpha_grid": -1}
+
+
 @pytest.fixture(scope="module")
 def jax_renderer():
     return jax_make_renderer(to_jax_config(port_config()))
 
 
-@pytest.fixture(scope="module", params=["cornell_scene", "courtyard_scene"])
-def frames(request, jax_renderer):
-    jscene, _ = getattr(jax_procedural, request.param)().build(with_bvh=False)
-    scene = scene_arrays_from_numpy(jax_leaves(jscene), "cpu")
+@pytest.fixture(scope="module")
+def bakes():
+    """Both scenes' JAX bakes with every leaf padded to the larger of the two
+    row counts (the bake's own padding rows, which nothing valid indexes), so
+    the jitted JAX frame compiles once for both."""
+    leaves = {name: (getattr(jax_procedural, name)().build(with_bvh=False)[0],)
+              for name in SCENES}
+    leaves = {name: (js, jax_leaves(js)) for name, (js,) in leaves.items()}
+    rows = {k: max(lv[k].shape[0] if lv[k].ndim else 0 for _, lv in leaves.values())
+            for k in leaves[SCENES[0]][1]}
+    out = {}
+    for name, (jscene, lv) in leaves.items():
+        padded = {}
+        for k, a in lv.items():
+            if a.ndim and a.shape[0] < rows[k]:
+                pad = np.full((rows[k] - a.shape[0], *a.shape[1:]), _FILL.get(k, 0), a.dtype)
+                a = np.concatenate([a, pad])
+            padded[k] = a
+        jscene = jscene._replace(
+            **{f: jnp.asarray(padded[f]) for f in jscene._fields if f not in ("bvh", "proxy")},
+            proxy=jscene.proxy._replace(
+                **{f: jnp.asarray(padded[f"proxy.{f}"]) for f in jscene.proxy._fields}),
+        )
+        out[name] = (jscene, padded)
+    return out
+
+
+@pytest.fixture(scope="module", params=SCENES)
+def frames(request, jax_renderer, bakes):
+    jscene, leaves = bakes[request.param]
+    scene = scene_arrays_from_numpy(leaves, "cpu")
     view = camera_for(request.param)
     cfg = port_config()
     jparams = jax_config.RenderParams.default()

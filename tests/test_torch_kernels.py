@@ -329,3 +329,40 @@ def test_gather_kernel_scalar_path_and_bad_index(cuda_device):
     keep[3] = False
     assert torch.equal(got[keep], gather_tile_sums(table, idx)[keep])
     assert not got[:, 1:].any()
+
+
+@pytest.mark.cuda
+def test_parity_frame_rsm_site_and_launches(cuda_device):
+    """The LPV's RSMs on the default courtyard's proxy at 128^2 (each cascade's
+    setup derived from the canonical one, as the frame derives it) bit-equal to
+    the plain version; the 128^2 -> 192^2 parity frame launches the rasterizer
+    4 times per frame (main view, cascade 0, one far cascade, one RSM)."""
+    from androidrenderer_tpu_torch.config import RenderParams, parity_frame_config
+    from androidrenderer_tpu_torch.ops import lpv
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+    from androidrenderer_tpu_torch.scene.proxy import swap_in_proxy
+
+    cfg = parity_frame_config(192, 192, 128, 128, shadow_cascade_resolution=128)
+    scene, _ = courtyard_scene().build(device=cuda_device)
+    cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(128, 128))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    view = cam.view_data()
+    gi = swap_in_proxy(scene)
+    inv = torch.as_tensor(view.inverse_view, device=cuda_device)
+    mins, cells = lpv.cascade_origins(torch.as_tensor(view.position, device=cuda_device),
+                                      -inv[:3, 2], 4, 32, 0.25, 0.1)
+    m_canon, setup_rsm, centers, radii = lpv._canonical_rsm_setup(gi, mins, cells, 32, 128)
+    for k in range(4):
+        setup = lpv.rsm_setup(gi, setup_rsm, m_canon, centers[k], radii[k], 128)
+        got = rasterize(setup, 128, 128)
+        want = rasterize_reference(setup, 128, 128)
+        assert (want[1] >= 0).any()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    renderer, temporal = make_renderer(cfg), temporal_state_for(cfg, device=cuda_device)
+    rasterize.launches = 0
+    for _ in range(3):
+        out, temporal = renderer(scene, view, RenderParams.default(), temporal)
+    torch.cuda.synchronize()
+    assert rasterize.launches == 12
+    assert tuple(out.image.shape) == (192, 192, 3) and bool(torch.isfinite(out.hdr).all())

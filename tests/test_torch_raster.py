@@ -52,7 +52,17 @@ def to_torch(setup) -> TriangleSetup:
     return TriangleSetup(*(torch.from_numpy(np.array(x)) for x in setup))
 
 
+def _pad_rows(a, rows, fill=0):
+    return jnp.concatenate([a, jnp.full((rows - a.shape[0], *a.shape[1:]), fill, a.dtype)])
+
+
 def jax_raster(setup, height, width, **kw):
+    """The Pallas kernel on ``setup`` padded with dead rows to a multiple of 256,
+    so calls of one signature but different triangle counts share a compile."""
+    rows = -(-setup.valid.shape[0] // 256) * 256
+    setup = jax.tree.map(lambda a: _pad_rows(a, rows), setup)
+    if kw.get("alpha_grid") is not None:
+        kw["alpha_grid"] = _pad_rows(jnp.asarray(kw["alpha_grid"]), rows, -1)
     out = _bitmask(setup, height=height, width=width, **kw)
     if isinstance(out, tuple):
         return tuple(np.asarray(o) for o in out)

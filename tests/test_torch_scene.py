@@ -114,7 +114,8 @@ for info in pkgutil.walk_packages(androidrenderer_tpu_torch.__path__, "androidre
 for name in ("ops.gather", "ops.cuda_build", "ops.raster.binning", "ops.raster.raster_xla",
              "ops.raster.interpolate", "tools.microbench_pallas_gather", "tools.bench_raster",
              "tools.experiments.raster_touch", "tools.experiments.raster_lanes",
-             "tools.experiments.raster_subfold", "tools.kernel_timing", "tools.raster_cuts"):
+             "tools.experiments.raster_subfold", "tools.kernel_timing", "tools.raster_cuts",
+             "ops.sh", "ops.lpv", "ops.upsample", "ops.taa"):
     assert "androidrenderer_tpu_torch." + name in sys.modules, name
 from androidrenderer_tpu_torch.camera import Camera
 from androidrenderer_tpu_torch.config import RenderParams, default_frame_config
@@ -166,6 +167,7 @@ def test_package_sources_import_no_jax():
         "ops/raster/interpolate.py", "tools/microbench_pallas_gather.py", "tools/bench_raster.py",
         "tools/experiments/raster_touch.py", "tools/experiments/raster_lanes.py",
         "tools/experiments/raster_subfold.py", "tools/kernel_timing.py", "tools/raster_cuts.py",
+        "ops/sh.py", "ops/lpv.py", "ops/upsample.py", "ops/taa.py",
     } <= names
     for path in [*sources, REPO / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
