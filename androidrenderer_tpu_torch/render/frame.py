@@ -6,16 +6,18 @@ Phase sequence (the JAX package's render/frame.py, single device):
     alpha test [or two-phase HiZ occlusion: raster last frame's visible
     primitives, build the HiZ pyramid, re-test every sphere, raster the newly
     visible, merge] -> [exact alpha-test peel of the masked triangles] ->
-    gbuffer resolve -> sky -> staggered CSM + packed 2x2 PCF -> [half-rate
-    SSAO + joint-bilateral 2x upsample] -> [LPV GI: staggered cascade rebuild
+    gbuffer resolve -> sky -> [staggered CSM + packed 2x2 PCF, or RT sun
+    shadows: one jittered any-hit ray per pixel through the CUDA traversal] ->
+    [half-rate SSAO + joint-bilateral 2x upsample, or RTAO: rtao_num_samples
+    any-hit rays per pixel] -> [LPV GI: staggered cascade rebuild
     (RSM on the proxy through the CUDA raster -> VPLs -> SH inject ->
     propagate), half-rate apply + upsample] -> sun BRDF + GI * AO ->
     [translucency: peeled BLEND layers, back-to-front composite] -> [TAA, or
     TAAU to the output resolution] -> bloom -> Reinhard -> u8
 
 Every tensor of the frame stays on the scene's device. Switches the port does
-not carry yet (ray tracing, probes, VRSAA) raise NotImplementedError naming
-their item in ROADMAP.md's port queue. The JAX frame's profiling stubs
+not carry yet (RT and probe GI, VRSAA) raise NotImplementedError naming their
+item in ROADMAP.md's port queue. The JAX frame's profiling stubs
 (``debug_stub_*``) and TPU tunables are kept in RenderConfig without effect.
 """
 
@@ -42,6 +44,7 @@ from androidrenderer_tpu_torch.ops.raster import rasterize, triangle_setup_corne
 from androidrenderer_tpu_torch.ops.raster.masked import (
     _sample_alpha, pack_alpha_planes, rasterize_masked_peeled,
 )
+from androidrenderer_tpu_torch.ops.rt import effects as rt_effects
 from androidrenderer_tpu_torch.ops.upsample import bilateral_upsample_2x
 from androidrenderer_tpu_torch.render.temporal import TemporalState
 from androidrenderer_tpu_torch.scene.proxy import swap_in_proxy
@@ -66,16 +69,26 @@ _QUEUE = "ROADMAP.md, port queue"
 def check_slice(config: RenderConfig) -> None:
     """Raise NotImplementedError for every switch the port does not carry yet."""
     unported = [
-        (config.gi_mode in (GIMode.RT, GIMode.PROBES),
-         f"gi_mode={config.gi_mode.name} ({_QUEUE} item 6: RT)"),
-        (config.ao_mode == AOMode.RT, f"ao_mode=RT ({_QUEUE} item 6: RT)"),
-        (config.shadow_mode == ShadowMode.RT, f"shadow_mode=RT ({_QUEUE} item 6: RT)"),
+        (config.gi_mode == GIMode.RT, f"gi_mode=RT ({_QUEUE} item 6b: RTGI)"),
+        (config.gi_mode == GIMode.PROBES, f"gi_mode=PROBES ({_QUEUE} item 6c: probe GI)"),
         (config.aa_mode == AAMode.VRSAA,
          f"aa_mode=VRSAA ({_QUEUE} item 7: VRSAA and interpolation)"),
     ]
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"{what} is not ported to androidrenderer_tpu_torch yet")
+
+
+def _require_bvh(scene: SceneArrays, config: RenderConfig) -> None:
+    """Raise ValueError when a ray-traced switch meets a scene without a BVH."""
+    rt = [f"{name}=RT" for name, on in (("shadow_mode", config.shadow_mode == ShadowMode.RT),
+                                         ("ao_mode", config.ao_mode == AOMode.RT)) if on]
+    if rt and scene.bvh is None:
+        raise ValueError(
+            f"{' and '.join(rt)} trace rays, but the scene has no BVH: build it with "
+            "RenderScene.build(with_bvh=True), or carry bvh.<field> leaves into "
+            "scene_arrays_from_numpy"
+        )
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -325,6 +338,7 @@ def render_frame(
     Each stage runs inside a ``torch.profiler.record_function`` range named
     ``frame/<stage>``, so a profile of the frame sums device time by stage."""
     check_slice(config)
+    _require_bvh(scene, config)
     dev = scene.positions.device
     h, w = config.render_height, config.render_width
     inv_view = _f32(view.inverse_view, dev)
@@ -371,8 +385,23 @@ def render_frame(
             shadow, cascades, temporal = _shadows(
                 scene, inv_view, p00, p11, z_near, params, temporal, config, gbuf, depth,
             )
+    elif config.shadow_mode == ShadowMode.RT:
+        # Ray-traced sun shadows (directional_light.cpp:372-422).
+        with record_function("frame/rt_shadows"):
+            shadow = rt_effects.rt_sun_shadows(
+                scene.bvh, gbuf.world_position, gbuf.normal, gbuf.valid, scene.sun_direction,
+                scene.sun_angular_size, temporal.frame_index, scene=scene,
+                masked=config.alpha_masking,
+            )
     ao = gi = motion = None
-    if config.ao_mode == AOMode.SSAO:
+    if config.ao_mode == AOMode.RT:
+        with record_function("frame/rtao"):
+            ao = rt_effects.rtao(
+                scene.bvh, gbuf.world_position, gbuf.normal, gbuf.valid,
+                config.rtao_num_samples, params.rtao_max_distance, temporal.frame_index,
+                scene=scene, masked=config.alpha_masking,
+            )
+    elif config.ao_mode == AOMode.SSAO:
         with record_function("frame/ssao"):
             ao = _ssao(cam_pos, z_near, params, config, gbuf, depth)
     if config.gi_mode == GIMode.LPV:

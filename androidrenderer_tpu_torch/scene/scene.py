@@ -6,19 +6,23 @@ NamedTuple of tensors on one device. Primitive transforms are folded into
 world-space vertex arrays, triangle-level tables carry material/primitive ids,
 and every axis is padded. The bake is the JAX package's, line for line, so both
 renderers read identical arrays; ``scene_arrays_from_numpy`` carries an array
-set baked elsewhere into this package. No BVH is built (``bvh`` is None): the
-ray-traced effects are not ported yet.
+set baked elsewhere into this package. ``with_bvh`` builds the ray tracer's
+BVH over every triangle (blend curtains included, as opaque) with the native
+builder where it can run (``native.py``), and packs its traversal rows; without
+it the scene carries the JAX bake's one-node empty BVH.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
-from androidrenderer_tpu_torch import init_device
+from androidrenderer_tpu_torch import init_device, native
+from androidrenderer_tpu_torch.ops.rt.traverse import DeviceBVH, empty_device_bvh, pack_node_rows
 from androidrenderer_tpu_torch.scene.material_storage import (
     START_ALIGN,
     MaterialStorage,
@@ -98,7 +102,9 @@ class SceneArrays(NamedTuple):
     sun_angular_size: torch.Tensor  # () f32
     emissive_points: torch.Tensor  # (K, 9) f32
     emissive_point_count: torch.Tensor  # () i32
-    bvh: None  # not ported yet (ray-traced effects)
+    # The ray tracer's BVH (ops/rt/traverse.py); None when the arrays were
+    # carried in without one (no ``bvh.<field>`` leaves).
+    bvh: DeviceBVH | None
     proxy: ProxyMesh
 
 
@@ -218,9 +224,12 @@ class RenderScene:
         self.sun_color = (np.asarray(color, np.float32) * intensity).astype(np.float32)
 
     # ------------------------------------------------------------------ build
-    def bake(self, pad: int = 512, proxy_cell_size: float = 0.25) -> Tuple[Dict, dict]:
+    def bake(self, pad: int = 512, with_bvh: bool = True,
+             proxy_cell_size: float = 0.25) -> Tuple[Dict, dict]:
         """Bake to numpy: (leaves, stats). ``leaves`` maps each SceneArrays field
-        (proxy fields as ``proxy.<name>``) to its array; ``bvh`` is absent."""
+        (proxy and BVH fields as ``proxy.<name>`` and ``bvh.<name>``) to its
+        array. With ``with_bvh`` the stats name the BVH builder that ran
+        (``bvh_builder``) and its seconds (``bvh_s``)."""
         all_pos, all_nrm, all_tan, all_uv, all_col, all_vp = [], [], [], [], [], []
         all_tri, all_mat, all_prim, all_dbl, all_alpha = [], [], [], [], []
         prim_bounds, prim_range = [], []
@@ -372,6 +381,15 @@ class RenderScene:
             emissive_point_count=np.int32(ecount),
         )
         leaves.update({f"proxy.{k}": v for k, v in proxy.items()})
+        if with_bvh:
+            t0 = time.perf_counter()
+            bvh_np, builder = native.build_bvh(positions, tri_indices)
+            bvh_s = time.perf_counter() - t0
+            device_bvh = _device_bvh(bvh_np, positions, tri_indices,
+                                     np.concatenate(all_alpha), alpha_grid)
+        else:
+            device_bvh = empty_device_bvh("cpu")
+        leaves.update({f"bvh.{f}": getattr(device_bvh, f).numpy() for f in DeviceBVH._fields})
         stats = {
             "num_vertices": nv,
             "num_triangles": nt,
@@ -382,31 +400,62 @@ class RenderScene:
             "num_blend_triangles": int((np.concatenate(all_alpha) == 2).sum()),
             "num_proxy_triangles": int(self.proxy_host["num_triangles"]),
         }
+        if with_bvh:
+            stats.update(bvh_builder=builder, bvh_s=bvh_s)
         return leaves, stats
 
     def build(
-        self, device="cuda", pad: int = 512, proxy_cell_size: float = 0.25
+        self, device="cuda", pad: int = 512, with_bvh: bool = True,
+        proxy_cell_size: float = 0.25,
     ) -> Tuple[SceneArrays, dict]:
         """Bake and upload: (SceneArrays on ``device``, stats). The card unless
         the caller asks for the CPU."""
         dev = init_device(device)  # raises before the bake when there is no card
-        leaves, stats = self.bake(pad=pad, proxy_cell_size=proxy_cell_size)
+        leaves, stats = self.bake(pad=pad, with_bvh=with_bvh, proxy_cell_size=proxy_cell_size)
         return scene_arrays_from_numpy(leaves, dev), stats
+
+
+def _device_bvh(bvh_np, positions, tri_indices, tri_alpha_mode, alpha_grid) -> DeviceBVH:
+    """The JAX bake's BVH block, on the CPU: slot-ordered Moller-Trumbore tables
+    (dead slots zeroed), per-slot opacity (mask mode != 1) and alpha bitmaps
+    (-1 for dead slots), packed into the traversal rows."""
+    slots = bvh_np.tri_order
+    safe = np.maximum(slots, 0)
+    t0 = positions[tri_indices[safe, 0]]
+    t1 = positions[tri_indices[safe, 1]]
+    t2 = positions[tri_indices[safe, 2]]
+    dead = (slots < 0)[:, None]
+    slot_v0 = np.where(dead, 0.0, t0).astype(np.float32)
+    slot_e1 = np.where(dead, 0.0, t1 - t0).astype(np.float32)
+    slot_e2 = np.where(dead, 0.0, t2 - t0).astype(np.float32)
+    slot_opaque = np.where(slots >= 0, tri_alpha_mode[safe] != 1, True)
+    slot_grid = np.where(slots[:, None] >= 0, alpha_grid[safe], -1).astype(np.int32)
+    nodes = [torch.from_numpy(np.ascontiguousarray(a)) for a in (
+        bvh_np.node_min, bvh_np.node_max, bvh_np.node_miss, bvh_np.node_first,
+        bvh_np.node_count)]
+    tables = [torch.from_numpy(a) for a in (slot_v0, slot_e1, slot_e2)]
+    rows = pack_node_rows(*nodes, *tables, torch.from_numpy(slot_opaque),
+                          slot_alpha_grid=torch.from_numpy(slot_grid))
+    return DeviceBVH(*nodes, torch.from_numpy(slots.astype(np.int32)), *tables, rows)
 
 
 def scene_arrays_from_numpy(leaves: Dict[str, np.ndarray], device) -> SceneArrays:
     """SceneArrays on ``device`` from a flat dict of numpy arrays keyed by field
-    name (``proxy.<name>`` for the proxy mesh; ``bvh`` is not read). 64-bit
-    arrays are narrowed to 32 bits, as the JAX package stores them."""
+    name (``proxy.<name>`` for the proxy mesh, ``bvh.<name>`` for the BVH; with
+    no ``bvh.`` keys ``bvh`` is None). 64-bit arrays are narrowed to 32 bits,
+    as the JAX package stores them."""
     dev = init_device(device)
     proxy = ProxyMesh(
         **{f: _tensor(leaves[f"proxy.{f}"], dev) for f in ProxyMesh._fields}
     )
+    bvh = None
+    if any(k.startswith("bvh.") for k in leaves):
+        bvh = DeviceBVH(**{f: _tensor(leaves[f"bvh.{f}"], dev) for f in DeviceBVH._fields})
     fields = {
         f: _tensor(leaves[f], dev)
         for f in SceneArrays._fields if f not in ("bvh", "proxy")
     }
-    return SceneArrays(**fields, bvh=None, proxy=proxy)
+    return SceneArrays(**fields, bvh=bvh, proxy=proxy)
 
 
 def scene_arrays_to_numpy(scene: SceneArrays) -> Dict[str, np.ndarray]:
@@ -417,4 +466,6 @@ def scene_arrays_to_numpy(scene: SceneArrays) -> Dict[str, np.ndarray]:
     }
     out.update({f"proxy.{f}": getattr(scene.proxy, f).cpu().numpy()
                 for f in ProxyMesh._fields})
+    if scene.bvh is not None:
+        out.update({f"bvh.{f}": getattr(scene.bvh, f).cpu().numpy() for f in DeviceBVH._fields})
     return out

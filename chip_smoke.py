@@ -19,8 +19,8 @@ beside them also holds the record pack, the allocations and the host's enqueue.
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. the card: torch's device name, and nvidia-smi's name and power limit;
-2. build csrc/raster.cu and csrc/gather.cu for sm_90a, one nvcc for each, both
-   started together (seconds, and ptxas' register report);
+2. build csrc/raster.cu, csrc/gather.cu and csrc/traverse.cu for sm_90a, one
+   nvcc for each, all started together (seconds, and ptxas' register report);
 3. the kernel against its plain PyTorch version at the main path's shapes on
    the bench scene and camera (bench.py:134-144): the 1088x1920 main view with
    the alpha grid, and one 1024^2 cascade (depth_only + affine_z). Both must be
@@ -72,16 +72,33 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    each mode (screen, csm, rsm) with fused, binned8 and subfold, chain 3; then
    each mode's step split: transform + setup, and the raster per call and
    kernel-only, with its work counts;
-12. A and B at 128^2, card against CPU, with phase 5's thresholds;
-13. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+12. the RT frame (the headless CLI's --shadow rt --ao rt: frame A with one
+   jittered any-hit sun ray and rtao_num_samples=4 AO rays per pixel, all
+   through csrc/traverse.cu, built beside the others in phase 2): (a) the
+   bench scene's BVH (builder, seconds, nodes, slots, node_rows MB); (b) the
+   traversal kernel against its plain version at the frame's call sites, from
+   the RT frame's first gbuffer — the shadow rays and RTAO sample 0 (any-hit,
+   alpha bitmaps) and primary rays through the same view (closest-hit, the
+   call RTGI will make): on a 65,536-ray subset sampled with a fixed seed (sky
+   pixels included) slot, t, u, v and each ray's steps bit-equal and the
+   longest walk and overflow equal; call ms, kernel-only us, the bound
+   (``traverse_bound``) and the plain version's ms on the subset; (c) the frame
+   timed as phase 4, with exactly 5 traversal and 4 raster launches per frame
+   (RT shadows replace the cascades); (d) the frame at 128^2 on the card and on
+   the CPU, within the thresholds written beside the call;
+13. A and B at 128^2, card against CPU, with phase 5's thresholds;
+14. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
    the raster family, #5 the gather, each with its call time ``ms``, its
    kernel-only time ``kernel_ms`` and its bound; #1 also at the RSM call site,
-   ``rsm_*``), the card line, and the final JSON line.
+   ``rsm_*``; then the port-queue traversal kernel, at the shadow site with the
+   RTAO and primary-ray sites as ``rtao_*`` and ``primary_*``), the card line,
+   and the final JSON line.
 
-Launch counts are read per path (the frames of phases 4, 7 and 8, the gather tool
-of phase 9, the entry-point calls of phase 10, the microbench of phase 11): every
-count is set to 0 just before a path runs and read just after, so the launches
-of the comparisons never count.
+Launch counts are read per path (the frames of phases 4, 7, 8 and 12, the gather
+tool of phase 9, the entry-point calls of phase 10, the microbench of phase 11):
+every count is set to 0 just before a path runs and read just after, so the
+launches of the comparisons never count; every path but phase 12's must make no
+traversal launch.
 
 It needs torch with CUDA and the repository beside it; it imports no JAX.
 """
@@ -183,7 +200,8 @@ def raster_site(label, setup, height, width, depth_only=False, affine_z=False, z
 
 
 def bench_setup(device):
-    """The bench scene, camera and raster-only config (bench.py:83-195)."""
+    """The bench scene (with its BVH), its bake stats, camera and raster-only
+    config (bench.py:83-195)."""
     import numpy as np
 
     from androidrenderer_tpu_torch.camera import Camera
@@ -201,13 +219,20 @@ def bench_setup(device):
     )
     cam.set_position([0.0, 1.7, 6.0])
     cam.pitch, cam.yaw = -0.05, np.pi
-    return cfg, scene, cam.view_data()
+    return cfg, scene, stats, cam.view_data()
 
+
+# The kernels of csrc/*.cu, by name, for the profile's per-kernel times.
+HAND_KERNELS = ("prep_kernel", "scan_kernel", "raster_kernel", "resolve_kernel",
+                "gather_partial_kernel", "gather_finish_kernel", "traverse_kernel")
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet: HBM3 rate, and
-# float32 outside the tensor cores).
+# float32 outside the tensor cores). The data sheet's 67 TFLOP/s counts a fused
+# multiply-add as two operations; the hand kernels are built with -fmad=false
+# and issue none, so one float32 instruction does one operation, at half that
+# rate.
 HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
+FP32_OPS_PER_S = 67e12 / 2
 
 
 def raster_bound(setup, height, width, depth_only=False, affine_z=False, z_limit=None,
@@ -264,6 +289,44 @@ def raster_bound(setup, height, width, depth_only=False, affine_z=False, z_limit
             f"{ops / 1e6:.3f} M ops = {t_ops * 1e3:.2f} us (counted per bbox pixel as before: "
             f"{bbox_ops / 1e6:.3f} M ops = {bbox_ops / FP32_OPS_PER_S * 1e6:.2f} us)")
     return (t_bytes, "bytes", work) if t_bytes >= t_ops else (t_ops, "operations", work)
+
+
+# Operations of one test, as csrc/traverse.cu does them: a slab test is 6
+# subtractions, 6 products, 6 pairwise min/max, 4 min/max folds and 3 compares
+# (25); a Moller-Trumbore test is two cross products (2 x 9), three dot
+# products and the determinant's (4 x 5), the guard, divide and 3 scalings (6),
+# the tvec differences (3), u + v (1) and 7 compares (55); the bitmap lookup 2
+# products, 4 clamps, 2 conversions and 6 integer operations (14); examining a
+# lookahead target, its slot compare (1), and its slab test where the slot is
+# a node (25).
+SLAB_OPS, MT_OPS, BITMAP_OPS, TARGET_OPS = 25, 55, 14, 1
+ROW_BYTES = 109 * 4
+
+
+def traverse_bound(work, rays):
+    """(least ms the card could take for one trace, "bytes" or "operations", the
+    counts as text), from the work this trace's walk made, counted by the
+    kernel (``traverse.work_counts``).
+
+    Operations, each charged where the walk makes it: a slab test per step, 4
+    Moller-Trumbore tests per leaf visit (the kernel tests every slot), a
+    bitmap lookup per slot that passed, and per inner visit the lookahead
+    targets examined up to the first hit and the slab tests run on them, over
+    float32's unfused rate (33.5 T/s). Bytes: each distinct node row read once
+    (109 x 4 B), each ray's origin and direction (24 B; the frame's bounds are
+    scalars) and its outputs (t, slot, u, v, steps: 20 B) once, over 3.35 TB/s."""
+    ops = (work["steps"] * SLAB_OPS + work["leaf_visits"] * 4 * MT_OPS
+           + work["bitmap_lookups"] * BITMAP_OPS + work["lookahead_targets"] * TARGET_OPS
+           + work["lookahead_slabs"] * SLAB_OPS)
+    nbytes = work["rows"] * ROW_BYTES + rays * (24 + 20) + 5
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    text = (f"{work['steps']} steps ({work['steps'] / rays:.1f} per ray), {work['leaf_visits']} "
+            f"leaf and {work['inner_visits']} inner visits, {work['lookahead_targets']} "
+            f"lookahead targets and {work['lookahead_slabs']} of their slab tests, "
+            f"{work['bitmap_lookups']} bitmap lookups, {work['rows']} distinct rows; "
+            f"{nbytes / 1e6:.3f} MB = {t_bytes * 1e3:.2f} us, {ops / 1e9:.3f} G ops = "
+            f"{t_ops * 1e3:.2f} us")
+    return (t_bytes, "bytes", text) if t_bytes >= t_ops else (t_ops, "operations", text)
 
 
 def kernel_checks(cfg, scene, view):
@@ -433,8 +496,8 @@ def entry_point_checks(scene, view, width, height, cascade0, res):
 
 
 def entry_points():
-    """The raster family's entry points by name, the design studies' included;
-    each counts its own launches."""
+    """Every kernel entry point by name: the raster family's, the design
+    studies' included, and the traversal's; each counts its own launches."""
     from androidrenderer_tpu_torch.ops.raster import rasterize
     from androidrenderer_tpu_torch.ops.raster.raster_binned import rasterize_binned
     from androidrenderer_tpu_torch.ops.raster.raster_fused import (
@@ -443,11 +506,12 @@ def entry_points():
     from androidrenderer_tpu_torch.ops.raster.raster_pallas import rasterize_pallas
     from androidrenderer_tpu_torch.tools.experiments.raster_lanes import rasterize_lanes
     from androidrenderer_tpu_torch.tools.experiments.raster_subfold import rasterize_subfold
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
     from androidrenderer_tpu_torch.tools.experiments.raster_touch import rasterize_touch
 
     return {f.__name__: f for f in (
         rasterize, rasterize_binned, rasterize_fused, rasterize_hybrid, rasterize_pallas,
-        rasterize_touch, rasterize_lanes, rasterize_subfold)}
+        rasterize_touch, rasterize_lanes, rasterize_subfold, trace_rays)}
 
 
 def gather_checks():
@@ -657,7 +721,7 @@ def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
     ms = float(np.median(times))
     print(f"{label} {cfg.render_width}x{cfg.render_height} chained frame times (ms): "
           f"{[round(t, 3) for t in times]}; median {ms:.3f} ms/frame")
-    print(f"{label} raster launches: {total} over {frames} frames = {total / frames} per frame "
+    print(f"{label} kernel launches: {total} over {frames} frames = {total / frames} per frame "
           f"({', '.join(f'{k} {v}' for k, v in launches.items() if v)})")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"{label} peak device memory: {peak:.2f} GiB")
@@ -705,10 +769,21 @@ def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
         print(f"{label} profile of 3 frames written to {dest.relative_to(REPO)}")
         print(f"{label} profiled frame: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
               f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in kernels) / 3:.0f} kernels")
+        # A range's "torch kernels" are those of the PyTorch ops inside it; the
+        # hand kernels, launched through ctypes, are not attributed to a range:
+        # they count in the busy total and are listed by name below. The device
+        # span is the range's extent on the device's timeline, gaps included.
+        spans = {e.key: device_us(e, False) for e in events
+                 if e.key.startswith("frame/") and e.cpu_time_total == 0}
         for e in sorted(events, key=lambda e: -e.cpu_time_total):
             if e.key.startswith("frame/") and e.cpu_time_total > 0:
                 print(f"  {e.key:18s} host {e.cpu_time_total / 1e3 / 3:8.3f} ms, "
-                      f"kernels {device_us(e, True) / 1e3 / 3:8.3f} ms per frame")
+                      f"torch kernels {device_us(e, True) / 1e3 / 3:8.3f} ms, "
+                      f"device span {spans.get(e.key, 0.0) / 1e3 / 3:8.3f} ms per frame")
+        hand = [(name, sum(device_us(e, False) for e in kernels if f"::{name}" in e.key),
+                 sum(e.count for e in kernels if f"::{name}" in e.key)) for name in HAND_KERNELS]
+        print("  hand kernels per frame: " + ", ".join(
+            f"{name} {n / 3:.0f}x {us / 1e3 / 3:.3f} ms" for name, us, n in hand if n))
     return ms, launches, frames, problems, out, temp
 
 
@@ -847,6 +922,110 @@ def parity_phase(scene, profile: bool, card: str):
     return rsm, launches, problems
 
 
+def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample):
+    """The traversal kernel against its plain version at one call site: the
+    kernel on every ray and on the ``sample`` subset, the plain version on the
+    subset (bit-equal), times and the bound. Returns a dict with ``eq``."""
+    import torch
+
+    from androidrenderer_tpu_torch.ops.rt.traverse import (
+        prepare_trace, trace_rays, trace_rays_reference, work_counts,
+    )
+    from androidrenderer_tpu_torch.tools.kernel_timing import kernel_only_ms
+
+    kw = dict(any_hit=any_hit, alpha_bitmap_test=True)
+    fields = ("slot", "t", "u", "v", "ray_steps")
+    full = trace_rays(bvh, origins, directions, tmin, tmax, **kw)
+    o_s, d_s = origins[sample].contiguous(), directions[sample].contiguous()
+    got = trace_rays(bvh, o_s, d_s, tmin, tmax, **kw)
+    want = trace_rays_reference(bvh, o_s, d_s, tmin, tmax, **kw)
+    torch.cuda.synchronize()
+    eq = all(torch.equal(getattr(got, f), getattr(want, f))
+             for f in fields + ("steps", "overflow"))
+    same_rays = all(torch.equal(getattr(full, f)[sample], getattr(got, f)) for f in fields)
+    err = max((getattr(got, f).double() - getattr(want, f).double()).abs().max().item()
+              for f in ("t", "u", "v"))
+    finite = all(bool(torch.isfinite(getattr(full, f)).all()) for f in ("t", "u", "v"))
+    ms = cuda_ms(lambda: trace_rays(bvh, origins, directions, tmin, tmax, **kw))
+    kernel_ms = kernel_only_ms(prepare_trace(bvh, origins, directions, tmin, tmax, **kw).launch)
+    counted = prepare_trace(bvh, origins, directions, tmin, tmax, counts=True, **kw)
+    counted.launch()
+    work = work_counts(counted)
+    r = origins.shape[0]
+    bound_ms, bound_by, text = traverse_bound(work, r)
+    plain_ms = cuda_ms(lambda: trace_rays_reference(bvh, o_s, d_s, tmin, tmax, **kw), reps=1)
+    hits = (full.slot >= 0).float().mean().item()
+    print(f"traverse {label}: {r} rays ({'any' if any_hit else 'closest'}-hit, alpha bitmaps), "
+          f"hit {hits:.4f}, longest walk {int(full.steps)}, overflow {bool(full.overflow)}; "
+          f"{sample.numel()}-ray subset bit-equal={eq} (max|d t,u,v|={err}), kernel on all rays "
+          f"= kernel on the subset: {same_rays}, finite: {finite}; call {ms:.3f} ms, "
+          f"kernel-only {kernel_ms * 1e3:.1f} us, plain (subset) {plain_ms:.1f} ms, "
+          f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {text}); library: none")
+    return dict(eq=eq and same_rays and finite and not bool(full.overflow), err=err, ms=ms,
+                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                hit_share=hits, longest_walk=int(full.steps), work=work, rays=r,
+                plain_rays=sample.numel())
+
+
+def rt_phase(scene, stats, view, profile: bool, card: str):
+    """Phase 12: (the three call sites' results, launches by entry point, failed
+    checks) of the RT frame on the bench scene."""
+    import numpy as np
+    import torch
+
+    from androidrenderer_tpu_torch.config import (
+        AOMode, RenderParams, ShadowMode, default_frame_config,
+    )
+    from androidrenderer_tpu_torch.ops import sky
+    from androidrenderer_tpu_torch.ops.rt import effects
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+
+    bvh = scene.bvh
+    m, slots = bvh.node_rows.shape[0], bvh.slot_tri.shape[0]
+    print(f"BVH: builder {stats['bvh_builder']}, {stats['bvh_s']:.2f} s; {m} nodes, {slots} slots, "
+          f"node_rows {tuple(bvh.node_rows.shape)} = {bvh.node_rows.numel() * 4 / 1e6:.1f} MB")
+    cfg = default_frame_config(1920, 1088, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
+    params = RenderParams.default()
+    first, _ = make_renderer(cfg)(scene, view, params, temporal_state_for(cfg, device="cuda"))
+    g = first.gbuffer
+    h, w = g.valid.shape
+    rng = np.random.default_rng(6)
+    sample = torch.from_numpy(np.sort(rng.choice(h * w, 65536, replace=False))).cuda()
+    sky_share = (~g.valid.reshape(-1)[sample]).float().mean().item()
+    print(f"RT frame's first gbuffer {h}x{w}: subset of 65536 rays, {sky_share:.4f} of them sky")
+    o_s, d_s = effects.sun_shadow_rays(g.world_position, g.normal, scene.sun_direction,
+                                       scene.sun_angular_size, 0)
+    d_ao = effects.rtao_directions(g.normal, 0, cfg.rtao_num_samples, 0)
+    inv_view = torch.as_tensor(view.inverse_view, device="cuda")
+    d_p = sky.view_ray_directions(inv_view, float(view.projection[0, 0]),
+                                  float(view.projection[1, 1]), h, w).reshape(-1, 3).contiguous()
+    o_p = inv_view[:3, 3].expand(h * w, 3).contiguous()
+    sites = {
+        "shadow": trace_site("shadow rays", bvh, o_s, d_s, effects.RAY_EPS, 1e30, True, sample),
+        "rtao": trace_site("RTAO sample 0", bvh, o_s, d_ao, effects.RAY_EPS,
+                           params.rtao_max_distance, True, sample),
+        "primary": trace_site("primary rays", bvh, o_p, d_p, 0.0, 1e30, False, sample),
+    }
+    problems = [f"the kernel and the plain version disagree at the {k} site"
+                for k, r in sites.items() if not r["eq"]]
+    if sky_share == 0.0:
+        problems.append("the subset holds no sky pixel")
+    if problems:
+        return sites, {}, problems
+    ms, launches, _, problems, out, _ = run_frames(
+        "frame RT", cfg, scene, view, profile, {"rasterize": 4, "trace_rays": 5})
+    print(f"frame_RT_ms: {ms:.3f} ({card})")
+    # Phase 5's bounds. Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W), first
+    # run: max |d u8| 0, no depth differing. The traversal is bit-equal on both
+    # devices; what may differ is the rays' noise directions (libm's sin/cos on
+    # the CPU, CUDA's on the card, apart by ulps), which can flip a grazing ray.
+    overrides = dict(occlusion_culling=True, translucency=True, shadow_mode=ShadowMode.RT,
+                     ao_mode=AOMode.RT)
+    if not card_vs_cpu("frame RT", overrides, curtains=True, max_far=0.005, max_depth=0.005):
+        problems.append("the 128^2 RT frames on the card and the CPU disagree")
+    return sites, launches, problems
+
+
 def main(argv) -> int:
     import torch
 
@@ -861,6 +1040,7 @@ def main(argv) -> int:
     from androidrenderer_tpu_torch.ops.cuda_build import Library, load_all
     from androidrenderer_tpu_torch.ops.gather import LIBRARY as GATHER_LIBRARY
     from androidrenderer_tpu_torch.ops.raster.raster import LIBRARY
+    from androidrenderer_tpu_torch.ops.rt.traverse import LIBRARY as TRAVERSE_LIBRARY
 
     # 1. the card
     dev = init_device("cuda")
@@ -880,15 +1060,15 @@ def main(argv) -> int:
             c_void_p, c_void_p]})
         PARENT["gather"] = Library(parent / "gather.cu", {"gather_tile_sums_launch": [
             c_void_p, c_longlong, c_int, c_void_p, c_longlong, c_void_p, c_void_p]})
-    load_all(LIBRARY, GATHER_LIBRARY, *PARENT.values())
-    for lib in (LIBRARY, GATHER_LIBRARY, *PARENT.values()):
+    load_all(LIBRARY, GATHER_LIBRARY, TRAVERSE_LIBRARY, *PARENT.values())
+    for lib in (LIBRARY, GATHER_LIBRARY, TRAVERSE_LIBRARY, *PARENT.values()):
         print(f"built {lib.source} for sm_90a in {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
 
     # 3. kernel vs plain version at the main path's shapes
-    cfg, scene, view = bench_setup(dev)
+    cfg, scene, scene_stats, view = bench_setup(dev)
     result, ok, cascade0 = kernel_checks(cfg, scene, view)
     if not ok:
         return fail("kernel and plain version disagree at the bench shapes")
@@ -956,16 +1136,22 @@ def main(argv) -> int:
     bench_ms, bench_split, path_launches["bench_raster"], problems = bench_raster_path(scene)
     if problems:
         return fail("bench_raster: " + "; ".join(problems))
+
+    # 12. the RT frame
+    rt_sites, path_launches["rt"], problems = rt_phase(
+        scene, scene_stats, view, profile, f"{kind}; {smi}")
+    if problems:
+        return fail("RT frame: " + "; ".join(problems))
     del scene
     torch.cuda.empty_cache()
 
-    # 12. A and B at 128^2, card vs CPU
+    # 13. A and B at 128^2, card vs CPU
     for label, overrides in (("A", {}), ("B", {"alpha_bitmap": False})):
         overrides = dict(occlusion_culling=True, translucency=True, **overrides)
         if not card_vs_cpu(f"frame {label}", overrides, curtains=True):
             return fail(f"frame {label}: card and CPU frames disagree")
 
-    # 13. results
+    # 14. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 
@@ -1028,6 +1214,18 @@ def main(argv) -> int:
             bound_by=r["bound_by"], library_ms=None, **extra,
         ))
     kernels.insert(4, gather)
+    shadow = rt_sites["shadow"]
+    kernels.append(dict(
+        name="traverse", route="cuda", source="androidrenderer_tpu_torch/csrc/traverse.cu",
+        replaces="androidrenderer_tpu/ops/rt/traverse.py:190", launches=launched("trace_rays"),
+        max_abs_err=max(r["err"] for r in rt_sites.values()), ms=shadow["ms"],
+        kernel_ms=shadow["kernel_ms"], plain_ms=shadow["plain_ms"], bound_ms=shadow["bound_ms"],
+        bound_by=shadow["bound_by"], library_ms=None,  # no PyTorch call traverses a BVH
+        # ms, kernel_ms and bound_ms cover every ray of the site; plain_ms the subset.
+        rays=shadow["rays"], plain_rays=shadow["plain_rays"],
+        **{f"{site}_{k}": rt_sites[site][k] for site in ("rtao", "primary")
+           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+    ))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,13 @@ and through the exact-alpha peel's z_limit layers on the bench scene at
 1920x1088; the gather-sum kernel is held to its plain version within rtol 2e-5;
 the ported raster microbench runs in each mode. The span-walk's adversarial
 records (tests/test_torch_raster_spans.py) hold the kernel bit-equal to the
-plain version, and its work counts equal to the plain mirror's.
+plain version, and its work counts equal to the plain mirror's. The traversal
+kernel (csrc/traverse.cu) is held bit-equal to ``trace_rays_reference`` on
+random triangles (any-hit and closest-hit), with per-ray bounds, an active
+mask, a step cap that stops rays, the alpha fixture's bitmaps and its work
+counts; its wrapper's checks, and the RT frame's launches at 128^2:
+
+    python -m pytest --noconftest -q tests/test_torch_kernels.py -m cuda -k 'traverse or rt_frame'
 """
 
 import numpy as np
@@ -366,3 +372,173 @@ def test_parity_frame_rsm_site_and_launches(cuda_device):
     torch.cuda.synchronize()
     assert rasterize.launches == 12
     assert tuple(out.image.shape) == (192, 192, 3) and bool(torch.isfinite(out.hdr).all())
+
+
+def _traverse_inputs(seed, device, n_tris=2000, n_rays=8192):
+    """Seeded random triangles in a 12 m box (the port's bake of their BVH) and
+    rays through it: origins inside, unit directions, one ray per case below
+    with a zero or subnormal direction component."""
+    from androidrenderer_tpu_torch import native
+    from androidrenderer_tpu_torch.scene.scene import _device_bvh
+
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-6, 6, (n_tris, 3))
+    verts = (centers[:, None, :] + rng.normal(0, 0.4, (n_tris, 3, 3))).reshape(-1, 3)
+    verts = verts.astype(np.float32)
+    idx = np.arange(n_tris * 3, dtype=np.int32).reshape(n_tris, 3)
+    bvh_np, _ = native.build_bvh(verts, idx)
+    alpha_mode = np.zeros(n_tris, np.int32)
+    grid = np.full((n_tris, 8), -1, np.int32)
+    b = _device_bvh(bvh_np, verts, idx, alpha_mode, grid)
+    b = type(b)(*(x.to(device) for x in b))
+    o = rng.uniform(-7, 7, (n_rays, 3)).astype(np.float32)
+    d = rng.normal(size=(n_rays, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d[0, 0], d[1, 1], d[2, 2] = 0.0, 1e-39, -3e-40
+    return b, torch.from_numpy(o).to(device), torch.from_numpy(d).to(device)
+
+
+def _assert_hits_equal(got, want):
+    torch.cuda.synchronize()
+    for f in ("slot", "t", "u", "v", "ray_steps", "steps", "overflow"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("seed", [1, 2])
+def test_traverse_kernel_matches_plain(cuda_device, seed, any_hit):
+    """The traversal kernel bit-equal to trace_rays_reference: t, slot, u, v,
+    each ray's steps, the longest walk and the overflow flag."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays, trace_rays_reference
+
+    b, o, d = _traverse_inputs(seed, cuda_device)
+    launches = trace_rays.launches
+    got = trace_rays(b, o, d, 0.01, 1e30, any_hit=any_hit)
+    assert trace_rays.launches == launches + 1
+    want = trace_rays_reference(b, o, d, 0.01, 1e30, any_hit=any_hit)
+    _assert_hits_equal(got, want)
+    hit = got.slot >= 0
+    assert bool(hit.any()) and not bool(hit.all()) and not bool(got.overflow)
+    assert bool(torch.isfinite(got.t).all() and torch.isfinite(got.u).all())
+
+
+@pytest.mark.cuda
+def test_traverse_kernel_bounds_active_overflow_and_work(cuda_device):
+    """Per-ray tmin and tmax, an active mask, a step cap that stops rays, and
+    the kernel's work counts equal to the plain version's."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import (
+        prepare_trace, trace_rays, trace_rays_reference, work_counts,
+    )
+
+    b, o, d = _traverse_inputs(3, cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    r = o.shape[0]
+    tmin = torch.rand(r, generator=g).mul(4.0).to(cuda_device)
+    tmax = (tmin + torch.rand(r, generator=g).mul(8.0).to(cuda_device)).contiguous()
+    active = (torch.rand(r, generator=g) < 0.7).to(cuda_device)
+    for kw in (dict(), dict(any_hit=True), dict(max_steps=7)):
+        got = trace_rays(b, o, d, tmin, tmax, active=active, **kw)
+        want = trace_rays_reference(b, o, d, tmin, tmax, active=active, **kw)
+        _assert_hits_equal(got, want)
+        assert not bool((got.ray_steps[~active] != 0).any())
+        assert bool(got.overflow) == ("max_steps" in kw)
+    call = prepare_trace(b, o, d, 0.01, 1e30, any_hit=True, counts=True)
+    call.launch()
+    _, work, touched = trace_rays_reference(b, o, d, 0.01, 1e30, any_hit=True, counts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(call.work, work) and torch.equal(call.touched.bool(), touched)
+    counts = work_counts(call)
+    assert counts["steps"] == int(work[:, 0].sum()) and 0 < counts["rows"] <= b.node_rows.shape[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_traverse_kernel_alpha_bitmap(cuda_device, any_hit):
+    """The alpha fixture's fence through its 16x16 bitmaps: holes and hits,
+    bit-equal to the plain version."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import (
+        prepare_trace, trace_rays, trace_rays_reference,
+    )
+
+    scene, _ = alpha_test_scene().build(device=cuda_device)
+    gx, gy = np.meshgrid(np.linspace(-1.5, 1.5, 64), np.linspace(0.3, 1.9, 64))
+    o = np.stack([gx, gy, np.full_like(gx, -1.0)], -1).reshape(-1, 3).astype(np.float32)
+    d = np.broadcast_to(np.array([0.05, 0.02, 1.0], np.float32), o.shape).copy()
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    kw = dict(any_hit=any_hit, alpha_bitmap_test=True)
+    got = trace_rays(scene.bvh, o, d, 0.01, 2.0, **kw)
+    _assert_hits_equal(got, trace_rays_reference(scene.bvh, o, d, 0.01, 2.0, **kw))
+    hit = got.slot >= 0
+    assert bool(hit.any()) and not bool(hit.all())
+    solid = trace_rays(scene.bvh, o, d, 0.01, 2.0, any_hit=any_hit)
+    assert bool((solid.slot >= 0).all())
+    # The work counts of the bitmap walk, lookups and lookahead tests included.
+    call = prepare_trace(scene.bvh, o, d, 0.01, 2.0, counts=True, **kw)
+    call.launch()
+    _, work, touched = trace_rays_reference(scene.bvh, o, d, 0.01, 2.0, counts=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(call.work, work) and torch.equal(call.touched.bool(), touched)
+    assert int(work[:, 5].sum()) > 0
+
+
+@pytest.mark.cuda
+def test_traverse_wrapper_rejects_bad_inputs(cuda_device):
+    from androidrenderer_tpu_torch.ops.rt import traverse
+
+    b, o, d = _traverse_inputs(4, cuda_device, n_tris=64, n_rays=256)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(b, o, d.cpu(), 0.01, 1e30)
+    with pytest.raises(TypeError):
+        traverse.trace_rays(b, o.double(), d, 0.01, 1e30)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(b, o[:, :2].contiguous(), d, 0.01, 1e30)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(b, o.t().contiguous().t(), d, 0.01, 1e30)
+    with pytest.raises(ValueError):
+        traverse.trace_rays(b, o, d, torch.zeros(3, device=cuda_device), 1e30)
+    with pytest.raises(TypeError):
+        traverse.trace_rays(b, o, d, 0.01, 1e30, active=torch.ones(256, device=cuda_device))
+
+    class Failing:
+        def load(self):
+            return self
+
+        def traverse_launch(self, *args):
+            return 700  # cudaErrorIllegalAddress
+
+    call = traverse.prepare_trace(b, o, d, 0.01, 1e30, library=Failing())
+    with pytest.raises(RuntimeError, match="700"):
+        call.launch()
+
+
+@pytest.mark.cuda
+def test_rt_frame_traces_through_the_kernel(cuda_device):
+    """Frame A with RT shadows and RTAO at 128^2: 5 traversal launches and 4
+    raster launches per frame (two occlusion phases, two translucent layers; RT
+    shadows replace the cascades), and the frame equals the same frame on the
+    CPU (the plain versions) to within one u8 step."""
+    from androidrenderer_tpu_torch.config import (
+        AOMode, RenderParams, ShadowMode, default_frame_config,
+    )
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+    from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
+
+    cfg = default_frame_config(128, 128, shadow_cascade_resolution=128,
+                               shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
+    leaves, _ = courtyard_scene(curtains=True).bake()
+    cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(128, 128))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    images = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = scene_arrays_from_numpy(leaves, dev)
+        renderer, temporal = make_renderer(cfg), temporal_state_for(cfg, device=dev)
+        trace_rays.launches = rasterize.launches = 0
+        for _ in range(2):
+            out, temporal = renderer(scene, cam.view_data(), RenderParams.default(), temporal)
+        images[dev.type] = out.image.cpu().numpy().astype(int)
+        if dev.type == "cuda":
+            assert trace_rays.launches == 10 and rasterize.launches == 8
+    assert np.abs(images["cuda"] - images["cpu"]).max() <= 1

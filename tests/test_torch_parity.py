@@ -700,9 +700,10 @@ def test_check_slice_raises_only_for_unported_switches():
     cfg = parity_frame_config(OUT, OUT, N, N)
     frame_mod.check_slice(cfg)
     frame_mod.check_slice(parity_frame_config(N, N, N, N))  # TAA, no upscale
-    for bad, item in ((dict(gi_mode=GIMode.RT), "item 6"), (dict(gi_mode=GIMode.PROBES), "item 6"),
-                      (dict(ao_mode=AOMode.RT), "item 6"), (dict(shadow_mode=ShadowMode.RT),
-                                                            "item 6"),
+    # RT sun shadows and RTAO are ported (tests/test_torch_rt.py).
+    frame_mod.check_slice(cfg.replace(shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT))
+    for bad, item in ((dict(gi_mode=GIMode.RT), "item 6b"),
+                      (dict(gi_mode=GIMode.PROBES), "item 6c"),
                       (dict(aa_mode=AAMode.VRSAA), "item 7")):
         with pytest.raises(NotImplementedError, match=item):
             make_renderer(cfg.replace(**bad))

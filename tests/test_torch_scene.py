@@ -1,9 +1,10 @@
 """The port's scene bake against the JAX package's, leaf for leaf.
 
 Both renderers must read the very same arrays: ``RenderScene.build`` of the port
-equals the JAX bake exactly (``np.array_equal`` and equal dtypes, the BVH
-excepted — the port builds none yet), and ``scene_arrays_from_numpy`` carries
-the JAX package's own arrays into the port unchanged.
+equals the JAX bake exactly (``np.array_equal`` and equal dtypes; here baked
+without a BVH, so both carry the one-node empty BVH — tests/test_torch_rt.py
+holds the built BVH), and ``scene_arrays_from_numpy`` carries the JAX
+package's own arrays into the port unchanged.
 """
 
 import re
@@ -14,6 +15,7 @@ import pytest
 import torch
 
 from androidrenderer_tpu.scene import procedural as jax_procedural
+from androidrenderer_tpu_torch.ops.rt.traverse import DeviceBVH
 from androidrenderer_tpu_torch.scene import procedural as torch_procedural
 from androidrenderer_tpu_torch.scene.scene import (
     SceneArrays,
@@ -29,22 +31,25 @@ REPO = Path(__file__).resolve().parents[1]
 SCENES = ["cornell_scene", "alpha_test_scene", "courtyard_scene"]
 
 
-def jax_leaves(jscene) -> dict:
-    """The JAX SceneArrays as the port's flat dict of host arrays."""
+def jax_leaves(jscene, bvh: bool = False) -> dict:
+    """The JAX SceneArrays as the port's flat dict of host arrays (with
+    ``bvh``, its BVH's fields as ``bvh.<name>`` too)."""
     out = {
         f: np.asarray(getattr(jscene, f))
         for f in jscene._fields if f not in ("bvh", "proxy")
     }
     out.update({f"proxy.{f}": np.asarray(getattr(jscene.proxy, f))
                 for f in jscene.proxy._fields})
+    if bvh:
+        out.update({f"bvh.{f}": np.asarray(getattr(jscene.bvh, f)) for f in jscene.bvh._fields})
     return out
 
 
 @pytest.fixture(scope="module", params=SCENES)
 def both_bakes(request):
     jscene, jstats = getattr(jax_procedural, request.param)().build(with_bvh=False)
-    leaves, stats = getattr(torch_procedural, request.param)().bake()
-    return jax_leaves(jscene), jstats, leaves, stats
+    leaves, stats = getattr(torch_procedural, request.param)().bake(with_bvh=False)
+    return jax_leaves(jscene, bvh=True), jstats, leaves, stats
 
 
 def test_bake_matches_jax_leaf_for_leaf(both_bakes):
@@ -64,7 +69,9 @@ def test_bake_matches_jax_leaf_for_leaf(both_bakes):
 def test_scene_arrays_from_numpy_round_trips(both_bakes):
     jl = both_bakes[0]
     scene = scene_arrays_from_numpy(jl, "cpu")
-    assert isinstance(scene, SceneArrays) and scene.bvh is None
+    assert isinstance(scene, SceneArrays) and isinstance(scene.bvh, DeviceBVH)
+    without = {k: v for k, v in jl.items() if not k.startswith("bvh.")}
+    assert scene_arrays_from_numpy(without, "cpu").bvh is None
     back = scene_arrays_to_numpy(scene)
     assert set(back) == set(jl)
     for k in jl:
