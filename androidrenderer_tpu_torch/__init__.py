@@ -6,9 +6,10 @@ frame (``config.raster_only_config``) and the headless CLI's default frame
 triangle setup, the hand-written CUDA rasterizer (``csrc/raster.cu``) behind the
 entry points of the JAX package's raster family, the exact alpha-test peel, gbuffer
 resolve, sky, staggered cascaded shadow maps, sun BRDF, the translucency peel,
-bloom and tonemap; the parity frame's SSAO, LPV GI and TAAU; and ray-traced sun
-shadows and AO over the bake's BVH through the hand-written CUDA traversal
-(``csrc/traverse.cu``). It imports torch and numpy only.
+bloom and tonemap; the parity frame's SSAO, LPV GI and TAAU; and, over the
+bake's BVH through the hand-written CUDA traversal (``csrc/traverse.cu``),
+ray-traced sun shadows and AO, RTGI with its denoiser, and the irradiance probe
+cache with the sky LUTs. It imports torch and numpy only.
 
 Entry points, as bench.py drives the JAX frame; they run on the card unless the
 caller passes ``device="cpu"``::

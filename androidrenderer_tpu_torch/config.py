@@ -11,8 +11,8 @@ The port renders the frame bench.py times (``parity_frame_config``: LPV GI,
 half-rate SSAO, TAAU), the bench's raster-only frame (``raster_only_config``)
 and the headless CLI's default frame at the bench's size
 (``default_frame_config``), with the exact alpha peel when ``alpha_bitmap`` is
-off; ``render.frame`` rejects the switches it does not carry (ray tracing,
-probes, VRSAA).
+off, and the CLI's ray-traced switches on it (RT shadows and AO, RT and probe
+GI); ``render.frame`` rejects the one switch it does not carry (VRSAA).
 """
 
 from __future__ import annotations

@@ -3,8 +3,9 @@
 // Replaces androidrenderer_tpu/ops/rt/traverse.py::_phase, the JAX package's
 // lockstep walk (a lax.while_loop over all rays, not a Pallas kernel) and the
 // ray-compaction schedule trace_rays wraps around it. It computes what
-// trace_rays computes, closest-hit or any-hit, with the in-traversal alpha
-// bitmap test, scalar or per-ray tmin and tmax, an active mask and a step cap.
+// trace_rays computes, closest-hit or any-hit (with the masked any-hit park
+// rule of the exact alpha peel), with the in-traversal alpha bitmap test,
+// scalar or per-ray tmin and tmax, an active mask and a step cap.
 // The compaction schedule is not carried over: it exists because the TPU runs
 // every ray in lockstep, and JAX's result does not depend on it.
 //
@@ -14,8 +15,10 @@
 // the box and links (9 floats); at a leaf whose box the ray hits, the 4 slots'
 // Moller-Trumbore data, their alpha words where the bitmap test is on, and the
 // slot count; at an inner node whose box it hits, the 4 lookahead slots and
-// boxes. It parks at idx >= m, at its first committed hit when any_hit is set,
-// or after max_steps steps; then it writes t, slot, u, v and its step count,
+// boxes. It parks at idx >= m, at its first committed hit when any_hit is set
+// (with masked_any_hit only when the nearest hit so far is on an opaque slot:
+// a masked slot's hit is kept as the nearest and the walk goes on, so that
+// the caller can alpha-test it and re-trace past it), or after max_steps steps; then it writes t, slot, u, v and its step count,
 // and its warp folds the longest walk and whether the cap stopped a ray into
 // two words (one atomic per warp).
 //
@@ -105,7 +108,7 @@ __device__ __forceinline__ float inv_component(float d) {
   return __fdiv_rn(1.0f, d == 0.0f ? 1e-30f : d);
 }
 
-template <bool kAnyHit, bool kBitmap>
+template <bool kAnyHit, bool kMasked, bool kBitmap>
 __global__ void __launch_bounds__(kThreads) traverse_kernel(
     const float* __restrict__ rows, int m, const float* __restrict__ origins,
     const float* __restrict__ dirs, int r, const float* __restrict__ tmin_ray, float tmin_all,
@@ -126,6 +129,7 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
     float best_t = tmax_ray ? tmax_ray[i] : tmax_all;
     float best_u = 0.0f, best_v = 0.0f;
     int best_slot = -1;
+    bool best_opq = false;  // the nearest hit's slot is opaque (masked any-hit)
     // Work counts (scratch `work`): the tests this walk makes, for the bound.
     int leaves = 0, inners = 0, targets = 0, target_slabs = 0, lookups = 0;
     idx = (active == nullptr || active[i]) ? 0 : m;
@@ -179,6 +183,7 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
             best_t = t_near;
             best_u = u_near;
             best_v = v_near;
+            if (kMasked) best_opq = __ldg(row + kOpq0 + k_best) != 0.0f;
           }
         } else {
           ++inners;
@@ -196,7 +201,7 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
           }
         }
       }
-      idx = (kAnyHit && best_slot >= 0) ? m : nxt;
+      idx = (kAnyHit && best_slot >= 0 && (!kMasked || best_opq)) ? m : nxt;
     }
     t_out[i] = best_t;
     slot_out[i] = best_slot;
@@ -222,15 +227,44 @@ __global__ void __launch_bounds__(kThreads) traverse_kernel(
   }
 }
 
-template <bool kAnyHit, bool kBitmap>
-void launch(dim3 grid, cudaStream_t stream, const float* rows, int m, const float* origins,
-            const float* dirs, int r, const float* tmin_ray, float tmin_all,
-            const float* tmax_ray, float tmax_all, const uint8_t* active, int max_steps,
-            float* t, int* slot, float* u, float* v, int* steps, int* steps_max, bool* overflow,
-            int* work, uint8_t* touched) {
-  traverse_kernel<kAnyHit, kBitmap><<<grid, kThreads, 0, stream>>>(
-      rows, m, origins, dirs, r, tmin_ray, tmin_all, tmax_ray, tmax_all, active, max_steps, t,
-      slot, u, v, steps, steps_max, overflow, work, touched);
+struct Args {
+  const float* rows;
+  int m;
+  const float* origins;
+  const float* dirs;
+  int r;
+  const float* tmin_ray;
+  float tmin_all;
+  const float* tmax_ray;
+  float tmax_all;
+  const uint8_t* active;
+  int max_steps;
+  float* t;
+  int* slot;
+  float* u;
+  float* v;
+  int* steps;
+  int* steps_max;
+  bool* overflow;
+  int* work;
+  uint8_t* touched;
+};
+
+template <bool kAnyHit, bool kMasked, bool kBitmap>
+void launch(dim3 grid, cudaStream_t stream, const Args& a) {
+  traverse_kernel<kAnyHit, kMasked, kBitmap><<<grid, kThreads, 0, stream>>>(
+      a.rows, a.m, a.origins, a.dirs, a.r, a.tmin_ray, a.tmin_all, a.tmax_ray, a.tmax_all,
+      a.active, a.max_steps, a.t, a.slot, a.u, a.v, a.steps, a.steps_max, a.overflow, a.work,
+      a.touched);
+}
+
+template <bool kAnyHit, bool kMasked>
+void launch_bitmap(dim3 grid, cudaStream_t stream, const Args& a, int bitmap) {
+  if (bitmap) {
+    launch<kAnyHit, kMasked, true>(grid, stream, a);
+  } else {
+    launch<kAnyHit, kMasked, false>(grid, stream, a);
+  }
 }
 
 }  // namespace
@@ -243,34 +277,28 @@ extern "C" {
 // tmax_ray may be null (the scalar applies), active may be null (all rays),
 // work ((r, 6) i32: steps, leaf visits, inner visits, lookahead targets
 // examined, lookahead slab tests, bitmap lookups) and touched ((m,) u8, zeroed
-// by the caller) may be null. Returns the first CUDA error, or 0.
+// by the caller) may be null. masked_any_hit applies with any_hit only: a ray
+// then parks on its nearest hit only when that hit's slot is opaque. Returns
+// the first CUDA error, or 0.
 int traverse_launch(const float* rows, int m, const float* origins, const float* dirs, int r,
                     const float* tmin_ray, float tmin_all, const float* tmax_ray,
-                    float tmax_all, const uint8_t* active, int any_hit, int bitmap,
-                    int max_steps, float* t, int* slot, float* u, float* v, int* steps,
-                    int* steps_max, bool* overflow, int* work, uint8_t* touched,
+                    float tmax_all, const uint8_t* active, int any_hit, int masked_any_hit,
+                    int bitmap, int max_steps, float* t, int* slot, float* u, float* v,
+                    int* steps, int* steps_max, bool* overflow, int* work, uint8_t* touched,
                     cudaStream_t stream) {
   cudaError_t err = cudaMemsetAsync(steps_max, 0, sizeof(int), stream);
   if (err == cudaSuccess) err = cudaMemsetAsync(overflow, 0, sizeof(bool), stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (r > 0) {
     const dim3 grid((r + kThreads - 1) / kThreads);
-    if (any_hit && bitmap) {
-      launch<true, true>(grid, stream, rows, m, origins, dirs, r, tmin_ray, tmin_all, tmax_ray,
-                         tmax_all, active, max_steps, t, slot, u, v, steps, steps_max, overflow,
-                         work, touched);
+    const Args a{rows, m, origins, dirs, r, tmin_ray, tmin_all, tmax_ray, tmax_all, active,
+                 max_steps, t, slot, u, v, steps, steps_max, overflow, work, touched};
+    if (any_hit && masked_any_hit) {
+      launch_bitmap<true, true>(grid, stream, a, bitmap);
     } else if (any_hit) {
-      launch<true, false>(grid, stream, rows, m, origins, dirs, r, tmin_ray, tmin_all, tmax_ray,
-                          tmax_all, active, max_steps, t, slot, u, v, steps, steps_max,
-                          overflow, work, touched);
-    } else if (bitmap) {
-      launch<false, true>(grid, stream, rows, m, origins, dirs, r, tmin_ray, tmin_all, tmax_ray,
-                          tmax_all, active, max_steps, t, slot, u, v, steps, steps_max,
-                          overflow, work, touched);
+      launch_bitmap<true, false>(grid, stream, a, bitmap);
     } else {
-      launch<false, false>(grid, stream, rows, m, origins, dirs, r, tmin_ray, tmin_all,
-                           tmax_ray, tmax_all, active, max_steps, t, slot, u, v, steps,
-                           steps_max, overflow, work, touched);
+      launch_bitmap<false, false>(grid, stream, a, bitmap);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -59,8 +59,12 @@ def brdf(
     roughness: torch.Tensor,  # (..., 1)
     l: torch.Tensor,  # (..., 3) unit, surface -> light
     v: torch.Tensor,  # (..., 3) unit, surface -> view
+    diffuse_only: bool = False,
 ) -> torch.Tensor:
-    """brdf() = Fd + Fr (brdf.slangi:60-115). Returns (..., 3)."""
+    """brdf() = Fd + Fr (brdf.slangi:60-115). Returns (..., 3).
+
+    ``diffuse_only=True`` gives the Fd-only variant of the RT bounce shading
+    (gltf_basic_pbr.slang:438)."""
     f0 = DIELECTRIC_F0 + (base_color - DIELECTRIC_F0) * metalness
     diffuse_color = base_color * (1.0 - DIELECTRIC_F0) * (1.0 - metalness)
 
@@ -73,10 +77,13 @@ def brdf(
     loh = torch.clamp(_dot(l, h), 0.0, 1.0)
 
     fd = diffuse_color * fd_burley(nov, nol, loh, roughness)
-    d = d_ggx(noh, roughness)
-    f = f_schlick(voh, f0, 1.0)
-    vis = v_smith_ggx_correlated(nov, nol, roughness)
-    fr = (d * vis) * f
-    result = fd + fr
+    if diffuse_only:
+        result = fd
+    else:
+        d = d_ggx(noh, roughness)
+        f = f_schlick(voh, f0, 1.0)
+        vis = v_smith_ggx_correlated(nov, nol, roughness)
+        fr = (d * vis) * f
+        result = fd + fr
     # NoL <= 0 contributes nothing (brdf.slangi:83-85).
     return torch.where(nol_raw > 0.0, result, torch.zeros_like(result))

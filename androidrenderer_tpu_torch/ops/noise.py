@@ -1,4 +1,4 @@
-"""Noise — per-pixel random numbers for stochastic effects (RT shadows and AO).
+"""Noise — per-pixel random numbers for stochastic effects (RT shadows, AO and GI).
 
 The reference ships 64-layer spatio-temporal blue-noise textures frame-indexed by
 ``pixel %% 128`` (noise_texture.hpp:12-22, scene_renderer.cpp:81-83). Here, as in

@@ -25,8 +25,6 @@ flushes the rays' subnormal origin and direction components to (signed) zero
 as it reads them, in the kernel and the plain version. Subnormal intermediate
 results, which JAX would flush too, are kept: scene-scale inputs do not make
 them.
-Not ported here: ``masked_any_hit`` (the exact alpha peel of traced rays,
-ROADMAP.md port queue item 6b).
 """
 
 from __future__ import annotations
@@ -62,9 +60,9 @@ FLT_MIN = 2.0 ** -126
 _vp, _ci, _cf = c_void_p, c_int, c_float
 LIBRARY = Library("traverse.cu", {
     # rows, m, origins, directions, r, tmin (ray, all), tmax (ray, all), active,
-    # any_hit, bitmap, max_steps, t, slot, u, v, steps, steps_max, overflow,
-    # work, touched, stream
-    "traverse_launch": [_vp, _ci, _vp, _vp, _ci, _vp, _cf, _vp, _cf, _vp, _ci, _ci, _ci,
+    # any_hit, masked_any_hit, bitmap, max_steps, t, slot, u, v, steps, steps_max,
+    # overflow, work, touched, stream
+    "traverse_launch": [_vp, _ci, _vp, _vp, _ci, _vp, _cf, _vp, _cf, _vp, _ci, _ci, _ci, _ci,
                         _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
 })
 
@@ -247,8 +245,17 @@ def trace_rays(
     max_steps: int = 1024,
     active: torch.Tensor | None = None,  # (R,) bool: inactive rays report a miss
     alpha_bitmap_test: bool = False,  # in-traversal 16x16 barycentric alpha test
+    masked_any_hit: bool = False,  # any-hit parks only on OPAQUE hits (see below)
 ) -> Hits:
     """Closest-hit (or any-hit) trace of R rays.
+
+    ``tmin`` may be per-ray (R,): the exact alpha peel re-traces past an
+    ignored hit with its own t as the ray's strict lower bound.
+    ``masked_any_hit`` changes any-hit to the reference's masked any-hit
+    shader (gltf_basic_pbr.slang:291-317): a ray parks only on a hit whose slot
+    is opaque (the per-slot flags in the node rows); a masked slot's hit stays
+    the nearest so far and the walk goes on, so the caller can alpha-test the
+    committed hit and re-trace (ops/rt/effects.py::occlusion_masked).
 
     ``alpha_bitmap_test`` resolves alpha-masked geometry inside the traversal
     with the per-triangle 16x16 barycentric bitmaps baked into the node rows
@@ -258,9 +265,9 @@ def trace_rays(
     other device raises."""
     if origins.device.type == "cpu":
         return trace_rays_reference(bvh, origins, directions, tmin, tmax, any_hit, max_steps,
-                                    active, alpha_bitmap_test)
+                                    active, alpha_bitmap_test, masked_any_hit=masked_any_hit)
     call = prepare_trace(bvh, origins, directions, tmin, tmax, any_hit, max_steps, active,
-                         alpha_bitmap_test)
+                         alpha_bitmap_test, masked_any_hit=masked_any_hit)
     call.launch()
     trace_rays.launches += 1
     return call.outputs
@@ -270,7 +277,8 @@ trace_rays.launches = 0
 
 
 def prepare_trace(bvh, origins, directions, tmin, tmax, any_hit=False, max_steps=1024,
-                  active=None, alpha_bitmap_test=False, counts=False, library=LIBRARY):
+                  active=None, alpha_bitmap_test=False, counts=False, library=LIBRARY,
+                  masked_any_hit=False):
     """Check the inputs of a kernel call and allocate its outputs and scratch
     (the kernel allocates nothing): a TraceCall. Launches and counts nothing;
     ``trace_rays`` launches once and counts it. ``counts`` adds the work-count
@@ -322,7 +330,8 @@ def prepare_trace(bvh, origins, directions, tmin, tmax, any_hit=False, max_steps
                 rows.data_ptr(), m, origins.data_ptr(), directions.data_ptr(), r,
                 ptr(tmin_t), 0.0 if tmin_s is None else tmin_s,
                 ptr(tmax_t), 0.0 if tmax_s is None else tmax_s,
-                ptr(active), int(any_hit), int(alpha_bitmap_test), int(max_steps),
+                ptr(active), int(any_hit), int(masked_any_hit), int(alpha_bitmap_test),
+                int(max_steps),
                 t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(), ray_steps.data_ptr(),
                 steps.data_ptr(), overflow.data_ptr(), ptr(work), ptr(touched), stream,
             )
@@ -380,7 +389,8 @@ def flush_subnormals(x: torch.Tensor) -> torch.Tensor:
 
 
 def trace_rays_reference(bvh, origins, directions, tmin, tmax, any_hit=False, max_steps=1024,
-                         active=None, alpha_bitmap_test=False, counts=False):
+                         active=None, alpha_bitmap_test=False, counts=False,
+                         masked_any_hit=False):
     """The plain PyTorch traversal, on any device: Hits (and with ``counts``,
     the kernel's work counts as (Hits, (R, 6) i32 work, (M,) bool touched)).
 
@@ -394,6 +404,7 @@ def trace_rays_reference(bvh, origins, directions, tmin, tmax, any_hit=False, ma
     best_slot = torch.full((r,), -1, dtype=torch.int32, device=dev)
     best_u = torch.zeros(r, dtype=torch.float32, device=dev)
     best_v = torch.zeros(r, dtype=torch.float32, device=dev)
+    best_opq = torch.zeros(r, dtype=torch.bool, device=dev)
     idx = torch.zeros(r, dtype=torch.int64, device=dev)
     if active is not None:
         idx = torch.where(active, idx, m)
@@ -461,6 +472,9 @@ def trace_rays_reference(bvh, origins, directions, tmin, tmax, any_hit=False, ma
         best_slot[live] = slot_l.to(torch.int32)
         best_u[live] = torch.where(found, u.gather(1, kb)[:, 0], best_u[live])
         best_v[live] = torch.where(found, v.gather(1, kb)[:, 0], best_v[live])
+        opq = torch.where(found, row[:, OPQ0:OPQ0 + LEAF_SIZE].gather(1, kb)[:, 0] != 0.0,
+                          best_opq[live])
+        best_opq[live] = opq
 
         # An inner node's lookahead: the first target hit, in preorder.
         t_slot = row[:, LOOK0:LOOK0 + 4]
@@ -479,7 +493,9 @@ def trace_rays_reference(bvh, origins, directions, tmin, tmax, any_hit=False, ma
         jump = t_slot.gather(1, k1.clamp(min=0)[:, None])[:, 0].to(torch.int64)
         nxt = torch.where(inner & (k1 >= 0), jump, miss)
         if any_hit:
-            nxt = torch.where(slot_l >= 0, m, nxt)
+            # Masked any-hit parks only on an opaque nearest hit.
+            parked = (slot_l >= 0) & opq if masked_any_hit else slot_l >= 0
+            nxt = torch.where(parked, m, nxt)
         idx[live] = nxt
         work[live, 0] += 1
         work[live, 1] += is_leaf.to(torch.int32)

@@ -4,8 +4,13 @@ The port of the JAX package's ops/sky.py background path: a per-pixel 12-step
 march with closed-form single scattering plus Hillaire's multiple-scattering
 term Psi_ms, tabulated host-side once (``multiscatter_lut``, numpy) and applied
 through a polynomial fit (``psi_ms``). Constants are the reference shader's
-(ARPC-modified rayleigh/ozone, sky/common.glsl:25-33). The LUT pipeline
-(transmittance / sky-view LUTs) is not ported yet (ROADMAP.md).
+(ARPC-modified rayleigh/ozone, sky/common.glsl:25-33).
+
+The LUT pipeline (procedural_sky.cpp:75-149), which the probe updates read for
+their missed rays: the static transmittance LUT (baked in numpy at first use),
+the per-frame sky-view LUT (a single-scattering march through it) and a
+bilinear LUT sample for arbitrary directions; ``sky_background_lut`` is the
+LUT-driven background, which no frame path calls, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -292,3 +297,182 @@ def sky_background(
     dirs = view_ray_directions(inverse_view, p00, p11, height, width)
     lum = sky_radiance(dirs, sun_direction)
     return lum * sun_color[None, None, :] * exposure * 0.05
+
+
+# ---------------------------------------------------------------------------
+# LUT pipeline (procedural_sky.cpp:75-149).
+
+_TRANSMITTANCE_LUT = {}
+T_LUT_MU = 64  # sun zenith cosine axis
+T_LUT_H = 64  # altitude axis (0..atmosphere top)
+SKY_LUT_H = 128
+SKY_LUT_W = 256
+
+
+def _transmittance_lut_numpy(steps: int = 48) -> np.ndarray:
+    """(T_LUT_H, T_LUT_MU, 3) float32: the JAX module's float64 march from
+    (0, r0) toward (sin, mu) to the atmosphere's top, every (altitude, mu) cell
+    at once (the same float64 operations per cell as its loop)."""
+    hs = np.linspace(0.0, (ATMO_RADIUS_MM - GROUND_RADIUS_MM), T_LUT_H)
+    mus = np.linspace(-0.2, 1.0, T_LUT_MU)
+    rs = np.asarray(RAYLEIGH_SCATTER).astype(np.float64)
+    oz = np.asarray(OZONE_ABSORB).astype(np.float64)
+    r0 = (GROUND_RADIUS_MM + hs)[:, None] + 0.0 * mus[None, :]
+    mu = np.broadcast_to(mus[None, :], r0.shape)
+    sn = np.sqrt(np.maximum(1.0 - mu * mu, 0.0))
+    b = 0.0 * sn + r0 * mu
+    c = (0.0 * 0.0 + r0 * r0) - ATMO_RADIUS_MM**2
+    t_exit = -b + np.sqrt(np.maximum(b * b - c, 0.0))
+    dt = t_exit / steps
+    od = np.zeros(r0.shape + (3,))
+    for k in range(steps):
+        px = 0.0 + sn * (k + 0.5) * dt
+        py = r0 + mu * (k + 0.5) * dt
+        hk = (np.sqrt(px * px + py * py) - GROUND_RADIUS_MM) * 1e3  # km
+        rho_r = np.exp(-hk / 8.0)
+        rho_m = np.exp(-hk / 1.2)
+        rho_o = np.maximum(0.0, 1.0 - np.abs(hk - 25.0) / 15.0)
+        od = od + (rs * rho_r[..., None] + (MIE_SCATTER + MIE_ABSORB) * rho_m[..., None]
+                   + oz * rho_o[..., None]) * dt[..., None]
+    return np.exp(-od).astype(np.float32)
+
+
+def transmittance_lut(device) -> torch.Tensor:
+    """(T_LUT_H, T_LUT_MU, 3) transmittance toward the sun from altitude h at
+    zenith-cosine mu (256x64 LUT in the reference; static: atmosphere constants
+    only), baked in numpy on first use and uploaded once per device."""
+    dev = torch.device(device)
+    if "host" not in _TRANSMITTANCE_LUT:
+        _TRANSMITTANCE_LUT["host"] = _transmittance_lut_numpy()
+    if dev not in _TRANSMITTANCE_LUT:
+        _TRANSMITTANCE_LUT[dev] = torch.from_numpy(_TRANSMITTANCE_LUT["host"]).to(dev)
+    return _TRANSMITTANCE_LUT[dev]
+
+
+def _sample_transmittance(t_lut: torch.Tensor, h_mm, mu) -> torch.Tensor:
+    """Bilinear LUT fetch; h in Mm above ground, mu = cos zenith toward sun."""
+    hx = torch.clamp(h_mm / (ATMO_RADIUS_MM - GROUND_RADIUS_MM), 0.0, 1.0) * (T_LUT_H - 1)
+    mx = torch.clamp((mu + 0.2) / 1.2, 0.0, 1.0) * (T_LUT_MU - 1)
+    h0 = torch.floor(hx).long()
+    m0 = torch.floor(mx).long()
+    h1 = torch.clamp(h0 + 1, max=T_LUT_H - 1)
+    m1 = torch.clamp(m0 + 1, max=T_LUT_MU - 1)
+    fh = (hx - h0)[..., None]
+    fm = (mx - m0)[..., None]
+    a = t_lut[h0, m0] * (1 - fm) + t_lut[h0, m1] * fm
+    b = t_lut[h1, m0] * (1 - fm) + t_lut[h1, m1] * fm
+    return a * (1 - fh) + b * fh
+
+
+def _sun_azimuth(sun_direction: torch.Tensor):
+    to_sun = normalize(-sun_direction.to(torch.float32))
+    return to_sun, torch.atan2(to_sun[2], to_sun[0])
+
+
+def build_sky_view_lut(sun_direction: torch.Tensor, altitude_km: float = 0.2,
+                       num_steps: int = 32) -> torch.Tensor:
+    """(SKY_LUT_H, SKY_LUT_W, 3) per-frame sky-view LUT (200x200 in the reference).
+
+    Texel mapping: u = azimuth relative to the sun's azimuth / 2pi; v = non-linear
+    elevation warp (Hillaire): elevation = sign(x) * x^2 * pi/2, x = 2v - 1.
+    The march's ``num_steps`` samples are evaluated as one batch; the
+    transmittance product and the in-scattered sum then run over the steps in
+    order (cumprod, cumsum), as the JAX loop accumulates them."""
+    dev = sun_direction.device
+    t_lut = transmittance_lut(dev)
+    to_sun, sun_az = _sun_azimuth(sun_direction)
+
+    u = (torch.arange(SKY_LUT_W, dtype=torch.float32, device=dev) + 0.5) / SKY_LUT_W
+    v = (torch.arange(SKY_LUT_H, dtype=torch.float32, device=dev) + 0.5) / SKY_LUT_H
+    az = u[None, :] * (2.0 * math.pi) + sun_az
+    x = v[:, None] * 2.0 - 1.0
+    el = torch.sign(x) * x * x * (math.pi / 2.0)
+    ce = torch.cos(el)
+    shape = (SKY_LUT_H, SKY_LUT_W)
+    d = torch.stack([(ce * torch.cos(az)).expand(shape), torch.sin(el).expand(shape),
+                     (ce * torch.sin(az)).expand(shape)], dim=-1)
+
+    # Single-scatter march with LUT-accurate sun transmittance.
+    o = torch.tensor([0.0, GROUND_RADIUS_MM + altitude_km * 1e-3, 0.0], dtype=torch.float32,
+                     device=dev)
+    t_atmo = _ray_sphere_exit(o + 0 * d, d, ATMO_RADIUS_MM)
+    b = (o * d).sum(dim=-1)
+    c_g = (o * o).sum() - GROUND_RADIUS_MM**2
+    disc = b * b - c_g
+    root = -b - torch.sqrt(torch.clamp(disc, min=0.0))
+    t_ground = torch.where((disc > 0) & (root > 0), root, torch.full_like(root, math.inf))
+    t_max = torch.minimum(t_atmo, t_ground)
+    cos_sun = (d * to_sun).sum(dim=-1)
+    ph_r = _rayleigh_phase(cos_sun)[..., None]
+    ph_m = _mie_phase(cos_sun)[..., None]
+    dt = t_max / num_steps
+
+    rayleigh = torch.as_tensor(RAYLEIGH_SCATTER, device=dev)
+    ozone = torch.as_tensor(OZONE_ABSORB, device=dev)
+    i = torch.arange(num_steps, dtype=torch.float32, device=dev)[:, None, None]
+    t = (i + 0.5) * dt  # (S, H, W)
+    p = o + d * t[..., None]
+    r = torch.sqrt((p * p).sum(dim=-1))
+    h_km = (r - GROUND_RADIUS_MM) * 1e3
+    rho_r, rho_m, rho_o = _densities(h_km)
+    scat_r = rayleigh * rho_r[..., None]
+    scat_m = MIE_SCATTER * rho_m[..., None]
+    ext = (scat_r + (MIE_SCATTER + MIE_ABSORB) * rho_m[..., None]
+           + ozone * rho_o[..., None])
+    mu_s = (p * to_sun).sum(dim=-1) / torch.clamp(r, min=1e-6)
+    sun_t = _sample_transmittance(t_lut, (r - GROUND_RADIUS_MM), mu_s)
+    in_scatter = (scat_r * ph_r + scat_m * ph_m) * sun_t
+    step_t = torch.exp(-ext * dt[..., None])
+    # trans before step k: 1, s0, s0*s1, ... (the loop's running product).
+    trans = torch.cat([torch.ones_like(step_t[:1]), torch.cumprod(step_t[:-1], dim=0)])
+    terms = trans * in_scatter * (1.0 - step_t) / torch.clamp(ext, min=1e-6)
+    return torch.cumsum(terms, dim=0)[-1]
+
+
+def sample_sky_lut(lut: torch.Tensor, directions: torch.Tensor,
+                   sun_direction: torch.Tensor) -> torch.Tensor:
+    """(..., 3) radiance from the sky-view LUT for arbitrary unit directions."""
+    to_sun, sun_az = _sun_azimuth(sun_direction)
+    az = torch.atan2(directions[..., 2], directions[..., 0]) - sun_az
+    u = torch.remainder(az / (2.0 * math.pi), 1.0)
+    el = torch.asin(torch.clamp(directions[..., 1], -1.0, 1.0))
+    x = torch.sign(el) * torch.sqrt(torch.abs(el) / (math.pi / 2.0))
+    v = torch.clamp((x + 1.0) * 0.5, 0.0, 1.0)
+    fx = u * SKY_LUT_W - 0.5
+    fy = v * SKY_LUT_H - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    gx = (fx - x0)[..., None]
+    gy = (fy - y0)[..., None]
+    x0i = torch.remainder(x0.long(), SKY_LUT_W)
+    x1i = torch.remainder(x0i + 1, SKY_LUT_W)
+    y0i = torch.clamp(y0.long(), 0, SKY_LUT_H - 1)
+    y1i = torch.clamp(y0i + 1, max=SKY_LUT_H - 1)
+    a = lut[y0i, x0i] * (1 - gx) + lut[y0i, x1i] * gx
+    b = lut[y1i, x0i] * (1 - gx) + lut[y1i, x1i] * gx
+    lum = a * (1 - gy) + b * gy
+    # Sun disc through transmittance (as the non-LUT path).
+    cos_sun = (directions * to_sun).sum(dim=-1)
+    t_lut = transmittance_lut(directions.device)
+    sun_t = _sample_transmittance(t_lut, torch.zeros_like(cos_sun) + 2e-4, cos_sun)
+    disc = (cos_sun > 0.999957) & (directions[..., 1] > -0.05)
+    return lum + torch.where(disc[..., None], sun_t * 1000.0, torch.zeros_like(sun_t))
+
+
+def sky_background_lut(
+    inverse_view: torch.Tensor,
+    p00,
+    p11,
+    sun_direction: torch.Tensor,
+    sun_color: torch.Tensor,
+    height: int,
+    width: int,
+    exposure: float = 0.00031415927,
+) -> torch.Tensor:
+    """LUT-driven background: per-frame 128x256 LUT march + per-pixel bilinear."""
+    lut = build_sky_view_lut(sun_direction)
+    dirs = view_ray_directions(inverse_view, p00, p11, height, width)
+    lum = sample_sky_lut(lut, dirs, sun_direction)
+    # The physically integrated LUT is ~10x dimmer than the closed-form
+    # approximation of sky_background; keep the display brightness.
+    return lum * sun_color[None, None, :] * exposure * 0.5

@@ -63,6 +63,25 @@ def sample_bilinear(
     return _bilerp(taps[..., 0:4], taps[..., 4:8], taps[..., 8:12], taps[..., 12:16], fx, fy)
 
 
+def sample_mr_bilinear(
+    pool: torch.Tensor,  # (R, 117) u8 material-triple pool
+    start: torch.Tensor,
+    log2b: torch.Tensor,
+    uv: torch.Tensor,
+    level: torch.Tensor,  # (...,) i32 mip level
+) -> torch.Tensor:
+    """Metal-rough bilinear from the triple row's 91:99 channels: (..., 2)
+    [G = roughness, B = metalness] (glTF metallicRoughness channel order), at an
+    integer LOD (RT hit shading, where rays carry no derivatives; the
+    reference's hit shaders sample level 0 likewise)."""
+    log2b = log2b.to(torch.int32)
+    level = torch.minimum(level.to(torch.int32).clamp(min=0), log2b)
+    size, sizef, mip_off = _level_geometry(log2b, level)
+    _, _, x0i, y0i, fx, fy = _footprint(uv, size, sizef)
+    taps = _fetch(pool, start + mip_off + y0i * size + x0i)
+    return _bilerp(taps[..., 91:93], taps[..., 93:95], taps[..., 95:97], taps[..., 97:99], fx, fy)
+
+
 class _Coarse:
     """Selection of the next level's 2x2 footprint inside a row's 3x3 blocks."""
 

@@ -11,13 +11,17 @@ Phase sequence (the JAX package's render/frame.py, single device):
     [half-rate SSAO + joint-bilateral 2x upsample, or RTAO: rtao_num_samples
     any-hit rays per pixel] -> [LPV GI: staggered cascade rebuild
     (RSM on the proxy through the CUDA raster -> VPLs -> SH inject ->
-    propagate), half-rate apply + upsample] -> sun BRDF + GI * AO ->
+    propagate), half-rate apply + upsample; or probe GI: the budgeted probe
+    update (one closest-hit and one sun trace for every cascade's probe rays),
+    half-rate sampling + upsample; or RTGI: one cosine ray per pixel and a sun
+    ray per hit per bounce, a-trous filter, temporal accumulation] -> sun BRDF
+    + GI * AO ->
     [translucency: peeled BLEND layers, back-to-front composite] -> [TAA, or
     TAAU to the output resolution] -> bloom -> Reinhard -> u8
 
-Every tensor of the frame stays on the scene's device. Switches the port does
-not carry yet (RT and probe GI, VRSAA) raise NotImplementedError naming their
-item in ROADMAP.md's port queue. The JAX frame's profiling stubs
+Every tensor of the frame stays on the scene's device. The switch the port does
+not carry yet (VRSAA) raises NotImplementedError naming its item in
+ROADMAP.md's port queue. The JAX frame's profiling stubs
 (``debug_stub_*``) and TPU tunables are kept in RenderConfig without effect.
 """
 
@@ -37,8 +41,10 @@ from androidrenderer_tpu_torch.config import (
 from androidrenderer_tpu_torch.ops import bloom as bloom_ops
 from androidrenderer_tpu_torch.ops import culling, lighting, post, sky
 from androidrenderer_tpu_torch.ops import lpv as lpv_ops
+from androidrenderer_tpu_torch.ops import probes as probe_ops
 from androidrenderer_tpu_torch.ops import shadow as shadow_ops
 from androidrenderer_tpu_torch.ops import taa as taa_ops
+from androidrenderer_tpu_torch.ops.denoise import atrous_filter, temporal_accumulate
 from androidrenderer_tpu_torch.ops.gbuffer import GBuffer, resolve_gbuffer
 from androidrenderer_tpu_torch.ops.raster import rasterize, triangle_setup_corners
 from androidrenderer_tpu_torch.ops.raster.masked import (
@@ -69,8 +75,6 @@ _QUEUE = "ROADMAP.md, port queue"
 def check_slice(config: RenderConfig) -> None:
     """Raise NotImplementedError for every switch the port does not carry yet."""
     unported = [
-        (config.gi_mode == GIMode.RT, f"gi_mode=RT ({_QUEUE} item 6b: RTGI)"),
-        (config.gi_mode == GIMode.PROBES, f"gi_mode=PROBES ({_QUEUE} item 6c: probe GI)"),
         (config.aa_mode == AAMode.VRSAA,
          f"aa_mode=VRSAA ({_QUEUE} item 7: VRSAA and interpolation)"),
     ]
@@ -81,8 +85,10 @@ def check_slice(config: RenderConfig) -> None:
 
 def _require_bvh(scene: SceneArrays, config: RenderConfig) -> None:
     """Raise ValueError when a ray-traced switch meets a scene without a BVH."""
-    rt = [f"{name}=RT" for name, on in (("shadow_mode", config.shadow_mode == ShadowMode.RT),
-                                         ("ao_mode", config.ao_mode == AOMode.RT)) if on]
+    rt = [name for name, on in (("shadow_mode=RT", config.shadow_mode == ShadowMode.RT),
+                                ("ao_mode=RT", config.ao_mode == AOMode.RT),
+                                ("gi_mode=RT", config.gi_mode == GIMode.RT),
+                                ("gi_mode=PROBES", config.gi_mode == GIMode.PROBES)) if on]
     if rt and scene.bvh is None:
         raise ValueError(
             f"{' and '.join(rt)} trace rays, but the scene has no BVH: build it with "
@@ -303,6 +309,64 @@ def _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth):
     return irr * gbuf.base_color, temporal
 
 
+def _probes(scene, cam_pos, params, temporal, config, gbuf, depth):
+    """(GI (H, W, 3), next temporal state): the budgeted probe update (one
+    closest-hit trace and one sun trace for every cascade's probe rays), then
+    the probes sampled on the half grid, reconstructed by the joint bilateral
+    2x upsample and modulated by the full-resolution base color."""
+    h, w = depth.shape
+    p = config.probe_grid[0] * config.probe_grid[1] * config.probe_grid[2]
+    want = (config.probe_cascades, p, probe_ops.IRR_RES ** 2, 3)
+    if tuple(temporal.probes.irradiance.shape) != want:
+        raise ValueError(
+            f"TemporalState.probes irradiance {tuple(temporal.probes.irradiance.shape)} != "
+            f"{want}: build the state with temporal_state_for(config)"
+        )
+    probes = probe_ops.update_probes(
+        temporal.probes, scene.bvh, scene, cam_pos, config.probe_grid, config.probe_spacing,
+        config.probe_budget, config.probe_rays, temporal.frame_index, params.sun_exposure,
+        masked=config.alpha_masking, use_textures=config.use_base_textures,
+        hysteresis=params.probe_hysteresis, spacing_ladder=config.probe_spacing_ladder,
+    )
+    grid_args = (cam_pos, config.probe_grid, config.probe_spacing)
+    ladder = config.probe_spacing_ladder
+    if _half_rate(config, h, w):
+        n_h = gbuf.normal[::2, ::2]
+        irr_h = probe_ops.sample_probes(probes, gbuf.world_position[::2, ::2], n_h,
+                                        gbuf.valid[::2, ::2], *grid_args, spacing_ladder=ladder)
+        irr = bilateral_upsample_2x(irr_h, depth[::2, ::2], n_h, depth, gbuf.normal)
+    else:
+        irr = probe_ops.sample_probes(probes, gbuf.world_position, gbuf.normal, gbuf.valid,
+                                      *grid_args, spacing_ladder=ladder)
+    return irr * gbuf.base_color, temporal._replace(probes=probes)
+
+
+def _rtgi(scene, view, params, temporal, config, gbuf, depth):
+    """(GI (H, W, 3), next temporal state): per-pixel RTGI (gi/rtgi.cpp:69-139;
+    bounce count r.GI.RT.Bounces), the a-trous reconstruction of the 1-spp
+    signal (the rtgi overlay filter), then the reprojected accumulation of the
+    pre-albedo irradiance (the vendor-denoiser slot), modulated by base color."""
+    h, w = depth.shape
+    if tuple(temporal.rtgi_history.shape) != (h, w, 3):
+        raise ValueError(
+            f"TemporalState.rtgi_history {tuple(temporal.rtgi_history.shape)} != {(h, w, 3)}: "
+            "build the state with temporal_state_for(config)"
+        )
+    dev = depth.device
+    irr = rt_effects.rtgi(
+        scene.bvh, scene, gbuf.world_position, gbuf.normal, gbuf.valid, temporal.frame_index,
+        params.rtgi_exposure, params.sun_exposure, num_bounces=config.rtgi_num_bounces,
+        masked=config.alpha_masking, use_textures=config.use_base_textures,
+    )
+    irr = atrous_filter(irr, depth, gbuf.normal, gbuf.valid, sigma_z=params.atrous_sigma_z,
+                        sigma_n=params.atrous_sigma_n)
+    mv = taa_ops.motion_vectors(gbuf.world_position, gbuf.valid, _f32(view.last_view_proj, dev),
+                                _f32(view.unjittered_view_proj, dev))
+    irr, history = temporal_accumulate(irr, temporal.rtgi_history, temporal.rtgi_valid, mv)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    return irr * gbuf.base_color, temporal._replace(rtgi_history=history, rtgi_valid=valid)
+
+
 def _taa(view, temporal, config, gbuf, lit):
     """(resolved lit at output resolution, motion, next temporal state): TAAU
     when the frame renders below its output resolution, else TAA."""
@@ -407,6 +471,13 @@ def render_frame(
     if config.gi_mode == GIMode.LPV:
         with record_function("frame/lpv"):
             gi, temporal = _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth)
+    elif config.gi_mode == GIMode.PROBES:
+        # DDGI-style budgeted probe cache (irradiance_cache.cpp:496-724).
+        with record_function("frame/probes"):
+            gi, temporal = _probes(scene, cam_pos, params, temporal, config, gbuf, depth)
+    elif config.gi_mode == GIMode.RT:
+        with record_function("frame/rtgi"):
+            gi, temporal = _rtgi(scene, view, params, temporal, config, gbuf, depth)
     with record_function("frame/shade"):
         direct = lighting.sun_lighting(
             gbuf, cam_pos, scene.sun_direction, scene.sun_color, shadow, params.sun_exposure,

@@ -79,26 +79,47 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    traversal kernel against its plain version at the frame's call sites, from
    the RT frame's first gbuffer — the shadow rays and RTAO sample 0 (any-hit,
    alpha bitmaps) and primary rays through the same view (closest-hit, the
-   call RTGI will make): on a 65,536-ray subset sampled with a fixed seed (sky
-   pixels included) slot, t, u, v and each ray's steps bit-equal and the
-   longest walk and overflow equal; call ms, kernel-only us, the bound
+   mode of RTGI's and the probes' traces): on a 65,536-ray subset sampled with
+   a fixed seed (sky pixels included) slot, t, u, v and each ray's steps
+   bit-equal and the longest walk and overflow equal; call ms, kernel-only us, the bound
    (``traverse_bound``) and the plain version's ms on the subset; (c) the frame
    timed as phase 4, with exactly 5 traversal and 4 raster launches per frame
    (RT shadows replace the cascades); (d) the frame at 128^2 on the card and on
    the CPU, within the thresholds written beside the call;
-13. A and B at 128^2, card against CPU, with phase 5's thresholds;
-14. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+13. the RTGI frame (the CLI's --shadow rt --ao rt --gi rt: the RT frame with one
+   cosine GI ray per pixel and one sun ray from each front-face hit, the a-trous
+   filter and the temporal accumulation): (a) the traversal kernel against its
+   plain version, as in 12(b), at RTGI's two sites from the frame's first
+   gbuffer: the GI rays (closest-hit, alpha bitmaps, active = valid pixels) and
+   the sun rays from their hits (any-hit, bitmaps, active = front-face hits);
+   (b) at one exact-alpha-peel site: the RT frame's shadow rays in their second
+   peel (masked any-hit, no bitmaps, each ray's tmin its first peel's ignored
+   hit, active = the rays that hit a masked slot whose texture failed); (c)
+   the frame timed as phase 4, with exactly 7 traversal (1 shadow, 4 RTAO, 2 GI)
+   and 4 raster launches per frame; GI changes the HDR; (d) the frame at 128^2
+   over 3 frames (the temporal accumulation runs) on the card and on the CPU;
+14. the probe frame (the CLI's --gi probes: frame A with the reference-scale
+   probe cache, 4 cascades of 32x8x32, 256 probes each refreshed per frame, 400
+   rays each: 409,600 probe rays per frame): (a) the traversal kernel against
+   its plain version at the probe-ray site (closest-hit, bitmaps) and the sun
+   rays from their hits (any-hit, active = hits); (b) the frame timed as phase
+   4, with exactly 6 raster (as A) and 2 traversal launches per frame and its
+   peak device memory; GI changes the HDR; (c) the frame at 128^2 with a
+   smaller cache on the card and on the CPU;
+15. A and B at 128^2, card against CPU, with phase 5's thresholds;
+16. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
    the raster family, #5 the gather, each with its call time ``ms``, its
    kernel-only time ``kernel_ms`` and its bound; #1 also at the RSM call site,
    ``rsm_*``; then the port-queue traversal kernel, at the shadow site with the
-   RTAO and primary-ray sites as ``rtao_*`` and ``primary_*``), the card line,
-   and the final JSON line.
+   other sites as ``rtao_*``, ``primary_*``, ``rtgi_*``, ``rtgi_shadow_*``,
+   ``peel_*``, ``probe_*`` and ``probe_shadow_*``), the card line, and the final
+   JSON line.
 
-Launch counts are read per path (the frames of phases 4, 7, 8 and 12, the gather
-tool of phase 9, the entry-point calls of phase 10, the microbench of phase 11):
-every count is set to 0 just before a path runs and read just after, so the
-launches of the comparisons never count; every path but phase 12's must make no
-traversal launch.
+Launch counts are read per path (the frames of phases 4, 7, 8, 12, 13 and 14, the
+gather tool of phase 9, the entry-point calls of phase 10, the microbench of
+phase 11): every count is set to 0 just before a path runs and read just after,
+so the launches of the comparisons never count; every path but phases 12-14's
+must make no traversal launch.
 
 It needs torch with CUDA and the repository beside it; it imports no JAX.
 """
@@ -303,7 +324,7 @@ SLAB_OPS, MT_OPS, BITMAP_OPS, TARGET_OPS = 25, 55, 14, 1
 ROW_BYTES = 109 * 4
 
 
-def traverse_bound(work, rays):
+def traverse_bound(work, rays, active_rays=None, per_ray_tmin=False):
     """(least ms the card could take for one trace, "bytes" or "operations", the
     counts as text), from the work this trace's walk made, counted by the
     kernel (``traverse.work_counts``).
@@ -313,12 +334,17 @@ def traverse_bound(work, rays):
     bitmap lookup per slot that passed, and per inner visit the lookahead
     targets examined up to the first hit and the slab tests run on them, over
     float32's unfused rate (33.5 T/s). Bytes: each distinct node row read once
-    (109 x 4 B), each ray's origin and direction (24 B; the frame's bounds are
-    scalars) and its outputs (t, slot, u, v, steps: 20 B) once, over 3.35 TB/s."""
+    (109 x 4 B); for every ray its outputs t, slot, u, v, steps (20 B) and its
+    active flag (1 B, where the call passes a mask of ``active_rays``) once;
+    for each ray that walks its origin and direction (24 B) and its tmin (4 B,
+    where the call passes one per ray) once; over 3.35 TB/s."""
     ops = (work["steps"] * SLAB_OPS + work["leaf_visits"] * 4 * MT_OPS
            + work["bitmap_lookups"] * BITMAP_OPS + work["lookahead_targets"] * TARGET_OPS
            + work["lookahead_slabs"] * SLAB_OPS)
-    nbytes = work["rows"] * ROW_BYTES + rays * (24 + 20) + 5
+    masked = active_rays is not None
+    walking = active_rays if masked else rays
+    nbytes = (work["rows"] * ROW_BYTES + rays * (20 + masked)
+              + walking * (24 + 4 * per_ray_tmin) + 5)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     text = (f"{work['steps']} steps ({work['steps'] / rays:.1f} per ray), {work['leaf_visits']} "
             f"leaf and {work['inner_visits']} inner visits, {work['lookahead_targets']} "
@@ -885,11 +911,26 @@ def rsm_checks(cfg, scene, view):
     return results[0], ok
 
 
+def gi_changes_hdr(label, cfg, scene, view, temp):
+    """A failed check's text, or None when the frame with GI differs in HDR
+    from the same frame with GI off, both from one state."""
+    from androidrenderer_tpu_torch.config import GIMode, RenderParams
+    from androidrenderer_tpu_torch.render import make_renderer
+
+    lit, _ = make_renderer(cfg)(scene, view, RenderParams.default(), temp)
+    unlit, _ = make_renderer(cfg.replace(gi_mode=GIMode.OFF))(
+        scene, view, RenderParams.default(), temp)
+    gi_d = (lit.hdr - unlit.hdr).abs()
+    print(f"{label} with GI against without, from one state: max|d hdr|="
+          f"{gi_d.max().item():.6g}, mean {gi_d.mean().item():.6g}; hdr mean "
+          f"{lit.hdr.mean().item():.6g}, hdr {tuple(lit.hdr.shape)}")
+    return None if gi_d.max().item() > 0 else f"{label}: GI changes nothing in the HDR"
+
+
 def parity_phase(scene, profile: bool, card: str):
     """Phase 8: (the RSM call site's results, launches by entry point, failed
     checks) of the parity frame on the bench scene."""
-    from androidrenderer_tpu_torch.config import GIMode, RenderParams, parity_frame_config
-    from androidrenderer_tpu_torch.render import make_renderer
+    from androidrenderer_tpu_torch.config import parity_frame_config
 
     cfg = parity_frame_config()
     view = parity_view(cfg)
@@ -898,15 +939,7 @@ def parity_phase(scene, profile: bool, card: str):
         return rsm, {}, ["the kernel and the plain version disagree at the RSM call site"]
     ms, launches, _, problems, out, temp = run_frames(
         "parity", cfg, scene, view, profile, {"rasterize": 4})
-    lit, _ = make_renderer(cfg)(scene, view, RenderParams.default(), temp)
-    unlit, _ = make_renderer(cfg.replace(gi_mode=GIMode.OFF))(
-        scene, view, RenderParams.default(), temp)
-    gi_d = (lit.hdr - unlit.hdr).abs()
-    print(f"parity frame with GI against without, from one state: max|d hdr|="
-          f"{gi_d.max().item():.6g}, mean {gi_d.mean().item():.6g}; hdr mean "
-          f"{lit.hdr.mean().item():.6g}, hdr {tuple(lit.hdr.shape)}")
-    if not gi_d.max().item() > 0:
-        problems.append("GI changes nothing in the HDR")
+    problems += [x for x in [gi_changes_hdr("parity frame", cfg, scene, view, temp)] if x]
     if float(out.hdr.amax()) == float(out.hdr.amin()):
         problems.append("HDR is constant")
     print(f"parity_frame_ms: {ms:.3f} ({card})")
@@ -922,10 +955,22 @@ def parity_phase(scene, profile: bool, card: str):
     return rsm, launches, problems
 
 
-def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample):
+def subset(n: int, seed: int):
+    """The sorted 65,536 of ``n`` rays a site's plain comparison runs on."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.sort(rng.choice(n, 65536, replace=False))).cuda()
+
+
+def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample, active=None,
+               masked_any_hit=False, bitmap=True):
     """The traversal kernel against its plain version at one call site: the
     kernel on every ray and on the ``sample`` subset, the plain version on the
-    subset (bit-equal), times and the bound. Returns a dict with ``eq``."""
+    subset (bit-equal), times and the bound. ``tmin`` may be per ray, as
+    ``active``; ``masked_any_hit`` and ``bitmap`` (the alpha bitmap test) as
+    the call site passes them. Returns a dict with ``eq``."""
     import torch
 
     from androidrenderer_tpu_torch.ops.rt.traverse import (
@@ -933,12 +978,16 @@ def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample):
     )
     from androidrenderer_tpu_torch.tools.kernel_timing import kernel_only_ms
 
-    kw = dict(any_hit=any_hit, alpha_bitmap_test=True)
+    kw = dict(any_hit=any_hit, alpha_bitmap_test=bitmap, masked_any_hit=masked_any_hit,
+              active=active)
+    per_ray_tmin = isinstance(tmin, torch.Tensor)
+    kw_s = dict(kw, active=None if active is None else active[sample].contiguous())
+    tmin_s = tmin[sample].contiguous() if per_ray_tmin else tmin
     fields = ("slot", "t", "u", "v", "ray_steps")
     full = trace_rays(bvh, origins, directions, tmin, tmax, **kw)
     o_s, d_s = origins[sample].contiguous(), directions[sample].contiguous()
-    got = trace_rays(bvh, o_s, d_s, tmin, tmax, **kw)
-    want = trace_rays_reference(bvh, o_s, d_s, tmin, tmax, **kw)
+    got = trace_rays(bvh, o_s, d_s, tmin_s, tmax, **kw_s)
+    want = trace_rays_reference(bvh, o_s, d_s, tmin_s, tmax, **kw_s)
     torch.cuda.synchronize()
     eq = all(torch.equal(getattr(got, f), getattr(want, f))
              for f in fields + ("steps", "overflow"))
@@ -952,10 +1001,16 @@ def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample):
     counted.launch()
     work = work_counts(counted)
     r = origins.shape[0]
-    bound_ms, bound_by, text = traverse_bound(work, r)
-    plain_ms = cuda_ms(lambda: trace_rays_reference(bvh, o_s, d_s, tmin, tmax, **kw), reps=1)
+    n_active = None if active is None else int(active.sum())
+    bound_ms, bound_by, text = traverse_bound(work, r, n_active, per_ray_tmin)
+    plain_ms = cuda_ms(lambda: trace_rays_reference(bvh, o_s, d_s, tmin_s, tmax, **kw_s), reps=1)
     hits = (full.slot >= 0).float().mean().item()
-    print(f"traverse {label}: {r} rays ({'any' if any_hit else 'closest'}-hit, alpha bitmaps), "
+    mode = ("masked any" if masked_any_hit else "any" if any_hit else "closest") + "-hit"
+    mode += ", alpha bitmaps" if bitmap else ", no bitmaps"
+    mode += ", per-ray tmin" if per_ray_tmin else ""
+    if active is not None:
+        mode += f", {n_active} active"
+    print(f"traverse {label}: {r} rays ({mode}), "
           f"hit {hits:.4f}, longest walk {int(full.steps)}, overflow {bool(full.overflow)}; "
           f"{sample.numel()}-ray subset bit-equal={eq} (max|d t,u,v|={err}), kernel on all rays "
           f"= kernel on the subset: {same_rays}, finite: {finite}; call {ms:.3f} ms, "
@@ -970,7 +1025,6 @@ def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample):
 def rt_phase(scene, stats, view, profile: bool, card: str):
     """Phase 12: (the three call sites' results, launches by entry point, failed
     checks) of the RT frame on the bench scene."""
-    import numpy as np
     import torch
 
     from androidrenderer_tpu_torch.config import (
@@ -989,8 +1043,7 @@ def rt_phase(scene, stats, view, profile: bool, card: str):
     first, _ = make_renderer(cfg)(scene, view, params, temporal_state_for(cfg, device="cuda"))
     g = first.gbuffer
     h, w = g.valid.shape
-    rng = np.random.default_rng(6)
-    sample = torch.from_numpy(np.sort(rng.choice(h * w, 65536, replace=False))).cuda()
+    sample = subset(h * w, 6)
     sky_share = (~g.valid.reshape(-1)[sample]).float().mean().item()
     print(f"RT frame's first gbuffer {h}x{w}: subset of 65536 rays, {sky_share:.4f} of them sky")
     o_s, d_s = effects.sun_shadow_rays(g.world_position, g.normal, scene.sun_direction,
@@ -1023,6 +1076,134 @@ def rt_phase(scene, stats, view, profile: bool, card: str):
                      ao_mode=AOMode.RT)
     if not card_vs_cpu("frame RT", overrides, curtains=True, max_far=0.005, max_depth=0.005):
         problems.append("the 128^2 RT frames on the card and the CPU disagree")
+    return sites, launches, problems
+
+
+def rtgi_phase(scene, view, profile: bool, card: str):
+    """Phase 13: (the RTGI and exact-peel sites' results, launches by entry
+    point, failed checks) of the RTGI frame on the bench scene."""
+    import torch
+
+    from androidrenderer_tpu_torch.config import (
+        AOMode, GIMode, RenderParams, ShadowMode, default_frame_config,
+    )
+    from androidrenderer_tpu_torch.ops.rt import effects
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+
+    bvh = scene.bvh
+    cfg = default_frame_config(1920, 1088, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT,
+                               gi_mode=GIMode.RT)
+    params = RenderParams.default()
+    first, _ = make_renderer(cfg)(scene, view, params, temporal_state_for(cfg, device="cuda"))
+    g = first.gbuffer
+    h, w = g.valid.shape
+    sample = subset(h * w, 6)
+    eps = effects.RAY_EPS
+    # RTGI's first bounce: the GI rays of valid pixels, then a sun ray from
+    # each front-face hit.
+    valid = g.valid.reshape(-1).contiguous()
+    o, d = effects.gi_rays(g.world_position, g.normal, 0)
+    hits = trace_rays(bvh, o, d, eps, 1e30, active=valid, alpha_bitmap_test=True)
+    hp, hn, front = effects.hit_geometry(scene, bvh, o, d, hits)
+    sun = scene.sun_direction
+    to_sun = -sun / torch.sqrt((sun * sun).sum())
+    lit = ((hits.slot >= 0) & valid & front).contiguous()
+    # The exact alpha peel: the shadow rays' first peel (masked any-hit), then
+    # the second from each ignored hit's own t, for the rays it left unresolved.
+    o_s, d_s = effects.sun_shadow_rays(g.world_position, g.normal, sun, scene.sun_angular_size, 0)
+    peel1 = trace_rays(bvh, o_s, d_s, eps, 1e30, any_hit=True, masked_any_hit=True)
+    slot = peel1.slot.clamp(min=0).long()
+    opaque = scene.tri_alpha_mode[bvh.slot_tri[slot].clamp(min=0).long()] != 1
+    unresolved = ((peel1.slot >= 0) & ~opaque
+                  & ~effects._hit_alpha_passes(scene, bvh, peel1)).contiguous()
+    t0 = torch.where(unresolved, peel1.t, torch.full_like(peel1.t, eps)).contiguous()
+    sites = {
+        "rtgi": trace_site("RTGI rays", bvh, o, d, eps, 1e30, False, sample, active=valid),
+        "rtgi_shadow": trace_site("RTGI hit-point sun rays", bvh, (hp + hn * 0.02).contiguous(),
+                                  to_sun.expand(hp.shape).contiguous(), eps, 1e30, True, sample,
+                                  active=lit),
+        "peel": trace_site("exact alpha peel, shadow rays' second peel", bvh, o_s, d_s, t0, 1e30,
+                           True, sample, active=unresolved, masked_any_hit=True, bitmap=False),
+    }
+    problems = [f"the kernel and the plain version disagree at the {k} site"
+                for k, r in sites.items() if not r["eq"]]
+    if not bool(unresolved.any()):
+        problems.append("no shadow ray's first peel ignored a masked hit")
+    if problems:
+        return sites, {}, problems
+    # 1 shadow + 4 RTAO traces, then per GI bounce one closest-hit and one sun
+    # trace (effects.rtgi, rtgi_num_bounces=1; the bitmap paths trace once
+    # each); the rasters of A less the cascades (occlusion 2, translucency 2).
+    per_frame = {"rasterize": 4, "trace_rays": 5 + 2 * cfg.rtgi_num_bounces}
+    ms, launches, _, problems, out, temp = run_frames("frame RTGI", cfg, scene, view, profile,
+                                                      per_frame)
+    print(f"frame_RTGI_ms: {ms:.3f} ({card})")
+    problems += [x for x in [gi_changes_hdr("frame RTGI", cfg, scene, view, temp)] if x]
+    # 3 chained frames, so the temporal accumulation runs. Bounds: no more than
+    # 1% of pixels off by more than one u8 step (the GI rays' cosine directions
+    # come from libm's sin/cos on the CPU and CUDA's on the card, apart by ulps:
+    # a grazing ray can flip between hit and sky, and the a-trous filter
+    # spreads it), depths as phase 5.
+    overrides = dict(occlusion_culling=True, translucency=True, shadow_mode=ShadowMode.RT,
+                     ao_mode=AOMode.RT, gi_mode=GIMode.RT)
+    if not card_vs_cpu("frame RTGI", overrides, curtains=True, max_far=0.01, max_depth=0.005):
+        problems.append("the 128^2 RTGI frames on the card and the CPU disagree")
+    return sites, launches, problems
+
+
+def probes_phase(scene, view, profile: bool, card: str):
+    """Phase 14: (the probe sites' results, launches by entry point, failed
+    checks) of the probe frame on the bench scene."""
+    import torch
+
+    from androidrenderer_tpu_torch.config import GIMode, default_frame_config
+    from androidrenderer_tpu_torch.ops import probes
+    from androidrenderer_tpu_torch.ops.rt import effects
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.render import temporal_state_for
+
+    bvh = scene.bvh
+    cfg = default_frame_config(1920, 1088, gi_mode=GIMode.PROBES)
+    state = temporal_state_for(cfg, device="cuda").probes
+    cam = torch.as_tensor(view.position, dtype=torch.float32, device="cuda")
+    plan = probes.probe_rays(state, cam, cfg.probe_grid, cfg.probe_spacing, cfg.probe_budget,
+                             cfg.probe_rays, 0, cfg.probe_spacing_ladder)
+    o, d = plan.origins, plan.directions
+    n = o.shape[0]
+    print(f"probe update: {cfg.probe_cascades} cascades of {cfg.probe_grid}, budget "
+          f"{cfg.probe_budget}, {cfg.probe_rays} rays: {n} probe rays per frame")
+    sample = subset(n, 7)
+    hits = trace_rays(bvh, o, d, 0.01, 1e30, alpha_bitmap_test=True)
+    hp, hn, _ = effects.hit_geometry(scene, bvh, o, d, hits)
+    sun = scene.sun_direction
+    to_sun = -sun / torch.sqrt((sun * sun).sum())
+    sites = {
+        "probe": trace_site("probe rays", bvh, o, d, 0.01, 1e30, False, sample),
+        "probe_shadow": trace_site("probe hit-point sun rays", bvh, (hp + hn * 0.02).contiguous(),
+                                   to_sun.expand(hp.shape).contiguous(), 0.01, 1e30, True,
+                                   sample, active=(hits.slot >= 0).contiguous()),
+    }
+    problems = [f"the kernel and the plain version disagree at the {k} site"
+                for k, r in sites.items() if not r["eq"]]
+    if problems:
+        return sites, {}, problems
+    # A's rasters (occlusion 2, translucency 2, cascade 0, one far cascade) and
+    # the probe update's two traces (every cascade's rays in one closest-hit
+    # trace, their sun rays in one any-hit trace).
+    ms, launches, _, problems, out, temp = run_frames(
+        "frame probes", cfg, scene, view, profile, {"rasterize": 6, "trace_rays": 2})
+    print(f"frame_probes_ms: {ms:.3f} ({card})")
+    problems += [x for x in [gi_changes_hdr("frame probes", cfg, scene, view, temp)] if x]
+    # A smaller cache than the frame's: the plain walk of 409,600 rays per frame
+    # is too slow on the CPU for this script's limit. 3 chained frames (the
+    # hysteresis blend runs); phase 5's bounds (the probe rays' directions
+    # differ by ulps of sin/cos between the two devices).
+    overrides = dict(occlusion_culling=True, translucency=True, gi_mode=GIMode.PROBES,
+                     probe_grid=(8, 4, 8), probe_budget=32, probe_rays=64)
+    if not card_vs_cpu("frame probes (cache 4 x (8, 4, 8), budget 32, 64 rays)", overrides,
+                       curtains=True, max_far=0.005, max_depth=0.005):
+        problems.append("the 128^2 probe frames on the card and the CPU disagree")
     return sites, launches, problems
 
 
@@ -1142,16 +1323,29 @@ def main(argv) -> int:
         scene, scene_stats, view, profile, f"{kind}; {smi}")
     if problems:
         return fail("RT frame: " + "; ".join(problems))
+
+    # 13. the RTGI frame
+    gi_sites, path_launches["rtgi"], problems = rtgi_phase(scene, view, profile, f"{kind}; {smi}")
+    if problems:
+        return fail("RTGI frame: " + "; ".join(problems))
+    rt_sites.update(gi_sites)
+
+    # 14. the probe frame
+    probe_sites, path_launches["probes"], problems = probes_phase(
+        scene, view, profile, f"{kind}; {smi}")
+    if problems:
+        return fail("probe frame: " + "; ".join(problems))
+    rt_sites.update(probe_sites)
     del scene
     torch.cuda.empty_cache()
 
-    # 13. A and B at 128^2, card vs CPU
+    # 15. A and B at 128^2, card vs CPU
     for label, overrides in (("A", {}), ("B", {"alpha_bitmap": False})):
         overrides = dict(occlusion_culling=True, translucency=True, **overrides)
         if not card_vs_cpu(f"frame {label}", overrides, curtains=True):
             return fail(f"frame {label}: card and CPU frames disagree")
 
-    # 14. results
+    # 16. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 
@@ -1223,8 +1417,9 @@ def main(argv) -> int:
         bound_by=shadow["bound_by"], library_ms=None,  # no PyTorch call traverses a BVH
         # ms, kernel_ms and bound_ms cover every ray of the site; plain_ms the subset.
         rays=shadow["rays"], plain_rays=shadow["plain_rays"],
-        **{f"{site}_{k}": rt_sites[site][k] for site in ("rtao", "primary")
-           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+        **{f"{site}_{k}": rt_sites[site][k]
+           for site in ("rtao", "primary", "rtgi", "rtgi_shadow", "peel", "probe", "probe_shadow")
+           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "rays")},
     ))
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -16,9 +16,12 @@ plain version, and its work counts equal to the plain mirror's. The traversal
 kernel (csrc/traverse.cu) is held bit-equal to ``trace_rays_reference`` on
 random triangles (any-hit and closest-hit), with per-ray bounds, an active
 mask, a step cap that stops rays, the alpha fixture's bitmaps and its work
-counts; its wrapper's checks, and the RT frame's launches at 128^2:
+counts, and the masked any-hit rule of the exact alpha peel; its wrapper's
+checks, the exact peel on the card against the CPU, and the RT, RTGI and probe
+frames' launches at 128^2:
 
-    python -m pytest --noconftest -q tests/test_torch_kernels.py -m cuda -k 'traverse or rt_frame'
+    python -m pytest --noconftest -q tests/test_torch_kernels.py -m cuda \
+        -k 'traverse or rt_frame or peel or gi_frame'
 """
 
 import numpy as np
@@ -542,3 +545,103 @@ def test_rt_frame_traces_through_the_kernel(cuda_device):
         if dev.type == "cuda":
             assert trace_rays.launches == 10 and rasterize.launches == 8
     assert np.abs(images["cuda"] - images["cpu"]).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_traverse_kernel_masked_any_hit(cuda_device, bitmap):
+    """The masked any-hit rule (the exact alpha peel's park test) on the alpha
+    fixture's fence, with per-ray tmin and an active mask: bit-equal to the
+    plain version, work counts included."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import (
+        prepare_trace, trace_rays, trace_rays_reference,
+    )
+
+    scene, _ = alpha_test_scene().build(device=cuda_device)
+    gx, gy = np.meshgrid(np.linspace(-1.5, 1.5, 64), np.linspace(0.3, 1.9, 64))
+    o = np.stack([gx, gy, np.full_like(gx, -1.0)], -1).reshape(-1, 3).astype(np.float32)
+    d = np.broadcast_to(np.array([0.05, 0.02, 1.0], np.float32), o.shape).copy()
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    tmin = torch.rand(o.shape[0], generator=g).mul(1.2).to(cuda_device)
+    active = (torch.rand(o.shape[0], generator=g) < 0.8).to(cuda_device)
+    kw = dict(any_hit=True, masked_any_hit=True, alpha_bitmap_test=bitmap, active=active)
+    got = trace_rays(scene.bvh, o, d, tmin, 3.0, **kw)
+    _assert_hits_equal(got, trace_rays_reference(scene.bvh, o, d, tmin, 3.0, **kw))
+    assert bool((got.slot >= 0).any()) and not bool((got.slot[~active] >= 0).any())
+    call = prepare_trace(scene.bvh, o, d, tmin, 3.0, counts=True, **kw)
+    call.launch()
+    _, work, touched = trace_rays_reference(scene.bvh, o, d, tmin, 3.0, counts=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(call.work, work) and torch.equal(call.touched.bool(), touched)
+
+
+@pytest.mark.cuda
+def test_exact_alpha_peel_on_the_card(cuda_device):
+    """trace_rays_masked and occlusion_masked on their exact path (use_bitmap=
+    False: masked any-hit traces, each re-traced from the ignored hit's own t)
+    through the kernel equal the same calls on the CPU, bit for bit."""
+    from androidrenderer_tpu_torch.ops.rt import effects
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
+
+    leaves, _ = alpha_test_scene().bake()
+    gx, gy = np.meshgrid(np.linspace(-1.5, 1.5, 96), np.linspace(0.3, 1.9, 96))
+    o = np.stack([gx, gy, np.full_like(gx, -1.0)], -1).reshape(-1, 3).astype(np.float32)
+    d = np.broadcast_to(np.array([0.05, 0.02, 1.0], np.float32), o.shape).copy()
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = scene_arrays_from_numpy(leaves, dev)
+        ot, dt = torch.from_numpy(o).to(dev), torch.from_numpy(d).to(dev)
+        launches = trace_rays.launches
+        hits = effects.trace_rays_masked(scene.bvh, scene, ot, dt, 0.01, 3.0, use_bitmap=False)
+        occ = effects.occlusion_masked(scene.bvh, scene, ot, dt, 0.01, 3.0, use_bitmap=False)
+        if dev.type == "cuda":
+            assert trace_rays.launches == launches + 2 * effects.ALPHA_PEELS
+        out[dev.type] = [x.cpu() for x in (hits.slot, hits.t, hits.u, hits.v, occ)]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(a, b)
+    assert bool(out["cuda"][4].any()) and not bool(out["cuda"][4].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gi", ["rt", "probes"])
+def test_gi_frame_traces_through_the_kernel(cuda_device, gi):
+    """Frame A with RT GI (and RT shadows and AO) or with probe GI (a cache of
+    4 x (8, 4, 8) probes, budget 32, 64 rays) at 128^2, 3 frames: 7 traversal
+    and 4 raster launches per RTGI frame (1 shadow, 4 RTAO, a GI ray and a sun
+    ray per pixel), 2 traversal and 6 raster launches per probe frame; the
+    image equals the CPU's (the plain versions) but for at most 1% of pixels
+    off by more than one u8 step (the GI rays' directions come from each
+    device's sin/cos, apart by ulps)."""
+    from androidrenderer_tpu_torch.config import (
+        AOMode, GIMode, RenderParams, ShadowMode, default_frame_config,
+    )
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+    from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
+
+    if gi == "rt":
+        cfg = default_frame_config(128, 128, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT,
+                                   gi_mode=GIMode.RT)
+        traces, rasters = 7, 4
+    else:
+        cfg = default_frame_config(128, 128, shadow_cascade_resolution=128,
+                                   gi_mode=GIMode.PROBES, probe_grid=(8, 4, 8),
+                                   probe_budget=32, probe_rays=64)
+        traces, rasters = 2, 6
+    leaves, _ = courtyard_scene(curtains=True).bake()
+    cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(128, 128))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    images = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = scene_arrays_from_numpy(leaves, dev)
+        renderer, temporal = make_renderer(cfg), temporal_state_for(cfg, device=dev)
+        trace_rays.launches = rasterize.launches = 0
+        for _ in range(3):
+            out, temporal = renderer(scene, cam.view_data(), RenderParams.default(), temporal)
+        images[dev.type] = out.image.cpu().numpy().astype(int)
+        if dev.type == "cuda":
+            assert trace_rays.launches == 3 * traces and rasterize.launches == 3 * rasters
+    assert (np.abs(images["cuda"] - images["cpu"]).max(-1) > 1).mean() <= 0.01

@@ -52,7 +52,7 @@ from androidrenderer_tpu_torch.scene.proxy import swap_in_proxy
 from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
 
 from test_torch_frame import to_jax_config
-from test_torch_scene import jax_leaves
+from test_torch_scene import jax_leaves, jax_temporal_leaves
 
 # pytest's workers share the CPU; torch's own thread pool on top of theirs
 # oversubscribes it.
@@ -517,11 +517,8 @@ def _views():
 
 
 def _port_temporal(jt):
-    leaves = {f: np.asarray(getattr(jt, f)) for f in
-              ("frame_index", "prev_visible_prims", "csm_packed", "csm_matrices", "taa_history",
-               "taa_valid")}
-    leaves.update({f"lpv.{f}": np.asarray(getattr(jt.lpv, f)) for f in jt.lpv._fields})
-    return temporal_from_numpy(leaves, "cpu")
+    """The port's state from every leaf of the JAX state."""
+    return temporal_from_numpy(jax_temporal_leaves(jt), "cpu")
 
 
 def _peak_bins(jscene, view, cfg):
@@ -700,10 +697,10 @@ def test_check_slice_raises_only_for_unported_switches():
     cfg = parity_frame_config(OUT, OUT, N, N)
     frame_mod.check_slice(cfg)
     frame_mod.check_slice(parity_frame_config(N, N, N, N))  # TAA, no upscale
-    # RT sun shadows and RTAO are ported (tests/test_torch_rt.py).
+    # RT sun shadows and RTAO (tests/test_torch_rt.py), RT and probe GI
+    # (tests/test_torch_gi.py) are ported.
     frame_mod.check_slice(cfg.replace(shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT))
-    for bad, item in ((dict(gi_mode=GIMode.RT), "item 6b"),
-                      (dict(gi_mode=GIMode.PROBES), "item 6c"),
-                      (dict(aa_mode=AAMode.VRSAA), "item 7")):
-        with pytest.raises(NotImplementedError, match=item):
-            make_renderer(cfg.replace(**bad))
+    for gi in (GIMode.RT, GIMode.PROBES):
+        frame_mod.check_slice(cfg.replace(gi_mode=gi))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        make_renderer(cfg.replace(aa_mode=AAMode.VRSAA))

@@ -37,7 +37,7 @@ from androidrenderer_tpu.scene import procedural as jax_procedural
 from androidrenderer_tpu.utils.image import ssim
 from androidrenderer_tpu_torch import native
 from androidrenderer_tpu_torch.config import (
-    AOMode, GIMode, RenderParams, ShadowMode, default_frame_config, raster_only_config,
+    AAMode, AOMode, GIMode, RenderParams, ShadowMode, default_frame_config, raster_only_config,
 )
 from androidrenderer_tpu_torch.ops import noise
 from androidrenderer_tpu_torch.ops.raster import TriangleSetup, rasterize_reference
@@ -460,10 +460,19 @@ def test_rt_shadows_and_rtao_match_jax(jax_scenes, scene_name):
         assert ja.min() < 1.0
 
 
-def test_occlusion_masked_exact_path_raises():
-    jb, o, d = _quad_case()
-    with pytest.raises(NotImplementedError, match="6b"):
-        effects.occlusion_masked(port_bvh(jb), t(o), t(d), 0.01, 1e30, use_bitmap=False)
+def test_occlusion_masked_exact_path_raises(jax_scenes):
+    """The exact alpha peel (``use_bitmap=False``) on the alpha fixture's fence:
+    occlusion equal to JAX's run op by op, the rays that pass a hole unoccluded;
+    without the scene, whose textures it samples, it raises a ValueError."""
+    jscene, scene = jax_scenes["alpha_test_scene"]
+    jb, o, d = _fence_case(jax_scenes)
+    with jax.disable_jit():
+        want = jax_effects.occlusion_masked(jb, jscene, jnp.asarray(o), jnp.asarray(d), 0.01,
+                                            3.0, use_bitmap=False)
+    got = effects.occlusion_masked(scene.bvh, scene, t(o), t(d), 0.01, 3.0, use_bitmap=False)
+    assert same(got, want) and got.any() and not got.all()
+    with pytest.raises(ValueError, match="scene"):
+        effects.occlusion_masked(port_bvh(jb), None, t(o), t(d), 0.01, 1e30, use_bitmap=False)
 
 
 # ----------------------------------------------------------------------- frame
@@ -539,17 +548,22 @@ def test_rt_shadows_darken_and_rtao_reaches_the_composite(rt_frames):
 
 def test_rt_switches_need_a_bvh():
     """check_slice lets RT shadows and AO through (default_frame_config, the
-    CLI's --shadow rt --ao rt) and still names the unported items; a scene
-    without a BVH raises a ValueError naming the remedy."""
+    CLI's --shadow rt --ao rt), and RT and probe GI, and still names VRSAA's
+    item; a scene without a BVH raises a ValueError naming the remedy, for
+    every switch that traces rays."""
     cfg = default_frame_config(N, N, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
     frame_mod.check_slice(cfg)
-    with pytest.raises(NotImplementedError, match="6b"):
-        frame_mod.check_slice(cfg.replace(gi_mode=GIMode.RT))
+    for gi in (GIMode.RT, GIMode.PROBES):
+        frame_mod.check_slice(cfg.replace(gi_mode=gi))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        frame_mod.check_slice(cfg.replace(aa_mode=AAMode.VRSAA))
     leaves, _ = torch_procedural.cornell_scene().bake(with_bvh=False)
     scene = scene_arrays_from_numpy({k: v for k, v in leaves.items()
                                      if not k.startswith("bvh.")}, "cpu")
     assert scene.bvh is None
     cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(N, N))
-    with pytest.raises(ValueError, match="with_bvh"):
-        make_renderer(cfg)(scene, cam.view_data(), RenderParams.default(),
-                           temporal_state_for(cfg, device="cpu"))
+    for c in (cfg, default_frame_config(N, N, gi_mode=GIMode.RT),
+              default_frame_config(N, N, gi_mode=GIMode.PROBES)):
+        with pytest.raises(ValueError, match="with_bvh"):
+            make_renderer(c)(scene, cam.view_data(), RenderParams.default(),
+                             temporal_state_for(c, device="cpu"))

@@ -45,6 +45,16 @@ def jax_leaves(jscene, bvh: bool = False) -> dict:
     return out
 
 
+def jax_temporal_leaves(jt) -> dict:
+    """A JAX TemporalState as the port's flat dict of host arrays: every field,
+    the LPV volumes as ``lpv.<field>`` and the probe cascades as
+    ``probes.<field>`` (temporal_from_numpy's keys)."""
+    out = {f: np.asarray(getattr(jt, f)) for f in jt._fields if f not in ("lpv", "probes")}
+    out.update({f"lpv.{f}": np.asarray(getattr(jt.lpv, f)) for f in jt.lpv._fields})
+    out.update({f"probes.{f}": np.asarray(getattr(jt.probes, f)) for f in jt.probes._fields})
+    return out
+
+
 @pytest.fixture(scope="module", params=SCENES)
 def both_bakes(request):
     jscene, jstats = getattr(jax_procedural, request.param)().build(with_bvh=False)
