@@ -9,7 +9,11 @@ resolve, sky, staggered cascaded shadow maps, sun BRDF, the translucency peel,
 bloom and tonemap; the parity frame's SSAO, LPV GI and TAAU; and, over the
 bake's BVH through the hand-written CUDA traversal (``csrc/traverse.cu``),
 ray-traced sun shadows and AO, RTGI with its denoiser, and the irradiance probe
-cache with the sky LUTs. It imports torch and numpy only.
+cache with the sky LUTs; VRSAA at twice the output resolution, frame
+interpolation and the debug visualizers; the headless CLI
+(``python -m androidrenderer_tpu_torch.app.headless``) with its cvars and
+application layer, and the glTF/KTX2 asset layer it loads. It imports torch and
+numpy only (Pillow and zstandard lazily, for PNG/JPEG and Zstd KTX2 textures).
 
 Entry points, as bench.py drives the JAX frame; they run on the card unless the
 caller passes ``device="cpu"``::

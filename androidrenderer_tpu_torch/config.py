@@ -11,8 +11,9 @@ The port renders the frame bench.py times (``parity_frame_config``: LPV GI,
 half-rate SSAO, TAAU), the bench's raster-only frame (``raster_only_config``)
 and the headless CLI's default frame at the bench's size
 (``default_frame_config``), with the exact alpha peel when ``alpha_bitmap`` is
-off, and the CLI's ray-traced switches on it (RT shadows and AO, RT and probe
-GI); ``render.frame`` rejects the one switch it does not carry (VRSAA).
+off, and every other switch of the CLI on it: the ray-traced ones (RT shadows
+and AO, RT and probe GI) and VRSAA (``aa_mode=AAMode.VRSAA``, rendered at twice
+the output resolution, without translucency, as the JAX frame requires).
 """
 
 from __future__ import annotations

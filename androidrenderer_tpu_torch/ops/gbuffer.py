@@ -73,8 +73,11 @@ def resolve_gbuffer(
     use_normal_maps: bool = True,
     use_mr_textures: bool = True,
     use_emission: bool = True,
+    pixel_coords=None,  # optional ((...,) px f32, (...,) py f32) matching vis' shape
 ) -> GBuffer:
-    """Shade the (H, W) visibility buffer."""
+    """Shade the visibility buffer. ``vis`` may be any shape: pixel coordinates
+    come from the (H, W) grid, or from ``pixel_coords`` for strided or scattered
+    shading (VRSAA's coarse quad grid and its fine samples)."""
     valid = vis >= 0
     tid = vis.clamp(min=0).to(torch.int64)
 
@@ -85,11 +88,15 @@ def resolve_gbuffer(
     pa = pl[..., :nch]
     pb = pl[..., nch : 2 * nch]
     pc = pl[..., 2 * nch :]
-    height, width = vis.shape
-    dev = vis.device
-    px = torch.arange(width, dtype=torch.float32, device=dev)[None, :, None]
-    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None, None]
-    f = pa * px + pb * py + pc  # (H, W, A+1+K)
+    if pixel_coords is None:
+        height, width = vis.shape
+        dev = vis.device
+        px = torch.arange(width, dtype=torch.float32, device=dev)[None, :, None]
+        py = torch.arange(height, dtype=torch.float32, device=dev)[:, None, None]
+    else:
+        px = pixel_coords[0].to(torch.float32)[..., None]
+        py = pixel_coords[1].to(torch.float32)[..., None]
+    f = pa * px + pb * py + pc  # (..., A+1+K)
     s = f[..., ATTR_CHANNELS : ATTR_CHANNELS + 1]
     inv_s = 1.0 / torch.where(s == 0.0, torch.ones_like(s), s)
     a = f * inv_s  # interpolated attributes; constant channels recover exactly

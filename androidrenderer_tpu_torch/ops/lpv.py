@@ -163,6 +163,22 @@ def _resolve_rsm(scene, setup, vis: torch.Tensor, use_base_textures: bool = True
     return albedo, nrm, wpos, valid
 
 
+def render_rsm(
+    scene,  # SceneArrays
+    matrix: torch.Tensor,  # (4, 4) RSM camera
+    resolution: int,
+    raster_fn,  # (setup, h, w) -> (depth, vis)
+):
+    """Render one RSM: (albedo (R,R,3), normal (R,R,3), world_pos (R,R,3), valid);
+    every triangle double-sided (the VPL visualizer's, ops/visualize.py)."""
+    setup = triangle_setup_corners(
+        scene.tri_corner_pos, matrix, resolution, resolution,
+        double_sided=torch.ones_like(scene.tri_double_sided), tri_valid=scene.tri_valid,
+    )
+    _, vis = raster_fn(setup, resolution, resolution)
+    return _resolve_rsm(scene, setup, vis)
+
+
 def _flat_rows(volume: torch.Tensor, ch: int) -> torch.Tensor:
     """(C, ch..., R, R, R) -> (C*R^3 + 1, ch) rows, the last the drop row."""
     c = volume.shape[0]

@@ -85,6 +85,28 @@ def _taps4(a: torch.Tensor):
     return a, right, down, down_right
 
 
+def _bilinear_sample(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Sample (H, W, C) at (H, W, 2) uv, clamped to the edge texels: the 2x2
+    footprint's taps ride one (H*W, 4C) row, fetched by one row gather (frame
+    interpolation's warp, ops/interpolation.py)."""
+    h, w, ch = img.shape
+    x = torch.clamp(uv[..., 0] * w - 0.5, 0.0, w - 1.0)
+    y = torch.clamp(uv[..., 1] * h - 0.5, 0.0, h - 1.0)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    idx = y0.to(torch.int64) * w + x0.to(torch.int64)
+    taps = torch.cat(_taps4(img), dim=-1).reshape(h * w, 4 * ch)[idx]
+    c00 = taps[..., 0 * ch : 1 * ch]
+    c01 = taps[..., 1 * ch : 2 * ch]
+    c10 = taps[..., 2 * ch : 3 * ch]
+    c11 = taps[..., 3 * ch : 4 * ch]
+    top = c00 + (c01 - c00) * fx
+    bot = c10 + (c11 - c10) * fx
+    return top + (bot - top) * fy
+
+
 def _bilinear_sample_packed(img: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     """Bilinear-sample (H, W, 3) f32 at (..., 2) uv through an R11G11B10 row:
     the 2x2 footprint's four taps ride one (H*W, 4) i32 row, fetched by one

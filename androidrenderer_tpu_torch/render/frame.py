@@ -16,13 +16,15 @@ Phase sequence (the JAX package's render/frame.py, single device):
     half-rate sampling + upsample; or RTGI: one cosine ray per pixel and a sun
     ray per hit per bounce, a-trous filter, temporal accumulation] -> sun BRDF
     + GI * AO ->
-    [translucency: peeled BLEND layers, back-to-front composite] -> [TAA, or
-    TAAU to the output resolution] -> bloom -> Reinhard -> u8
+    [translucency: peeled BLEND layers, back-to-front composite] -> [VRSAA fine
+    pass, or TAA, or TAAU to the output resolution] -> bloom -> Reinhard -> u8
 
-Every tensor of the frame stays on the scene's device. The switch the port does
-not carry yet (VRSAA) raises NotImplementedError naming its item in
-ROADMAP.md's port queue. The JAX frame's profiling stubs
-(``debug_stub_*``) and TPU tunables are kept in RenderConfig without effect.
+Under VRSAA the geometry rasterizes at twice the output resolution and every
+stage from the resolve on shades the coarse grid (the quads' top-left samples);
+the fine pass re-shades the other 3 samples of the quads with contrast and
+box-resolves them (ops/vrsaa.py). Every tensor of the frame stays on the
+scene's device. The JAX frame's profiling stubs (``debug_stub_*``) and TPU
+tunables are kept in RenderConfig without effect.
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ from androidrenderer_tpu_torch.ops import lpv as lpv_ops
 from androidrenderer_tpu_torch.ops import probes as probe_ops
 from androidrenderer_tpu_torch.ops import shadow as shadow_ops
 from androidrenderer_tpu_torch.ops import taa as taa_ops
+from androidrenderer_tpu_torch.ops import vrsaa as vrsaa_ops
 from androidrenderer_tpu_torch.ops.denoise import atrous_filter, temporal_accumulate
-from androidrenderer_tpu_torch.ops.gbuffer import GBuffer, resolve_gbuffer
+from androidrenderer_tpu_torch.ops.gbuffer import GBuffer, pack_attribute_planes, resolve_gbuffer
 from androidrenderer_tpu_torch.ops.raster import rasterize, triangle_setup_corners
 from androidrenderer_tpu_torch.ops.raster.masked import (
     _sample_alpha, pack_alpha_planes, rasterize_masked_peeled,
@@ -67,20 +70,18 @@ class FrameOutputs(NamedTuple):
     csm: object = None
     # (H, W, 2) uv-space reprojection motion (None unless TAA ran).
     motion: object = None
+    # () i32 quads dropped past vrsaa_budget this frame, on the device (None
+    # unless VRSAA ran): the worklist's true overflow count, never silently capped.
+    vrsaa_dropped: object = None
 
 
-_QUEUE = "ROADMAP.md, port queue"
-
-
-def check_slice(config: RenderConfig) -> None:
-    """Raise NotImplementedError for every switch the port does not carry yet."""
-    unported = [
-        (config.aa_mode == AAMode.VRSAA,
-         f"aa_mode=VRSAA ({_QUEUE} item 7: VRSAA and interpolation)"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported to androidrenderer_tpu_torch yet")
+def _check_vrsaa(config: RenderConfig) -> None:
+    """The JAX frame's ValueErrors for configs VRSAA cannot render."""
+    if config.translucency:
+        raise ValueError("VRSAA + translucency unsupported (peel at 2x res)")
+    if (config.render_width != 2 * config.output_width
+            or config.render_height != 2 * config.output_height):
+        raise ValueError("VRSAA needs render resolution == 2x output resolution")
 
 
 def _require_bvh(scene: SceneArrays, config: RenderConfig) -> None:
@@ -197,7 +198,8 @@ def _translucency(scene, view, params, config, setup, depth, lit, flags):
 
 def _shadows(scene, inv_view, p00, p11, z_near, params, temporal, config, gbuf, depth):
     """Cascade fit + depth rasters + packed PCF: (shadow (H, W, 1), cascades as
-    sampled, next temporal state)."""
+    sampled, next temporal state, and ``sample(gbuffer, depth)``, the PCF of any
+    other samples against the same maps: the VRSAA fine pass's)."""
     cascades = shadow_ops.fit_cascades(
         inv_view, p00, p11, scene.sun_direction,
         config.num_shadow_cascades, config.shadow_cascade_resolution,
@@ -230,20 +232,25 @@ def _shadows(scene, inv_view, p00, p11, z_near, params, temporal, config, gbuf, 
             config.shadow_cascade_resolution, **geometry,
         )
     l = -scene.sun_direction / torch.sqrt((scene.sun_direction ** 2).sum())
-    ndotl = torch.clamp((gbuf.normal * l[None, None, :]).sum(dim=-1, keepdim=True), 0.0, 1.0)
-    view_distance = torch.where(
-        depth > 0.0, z_near / torch.clamp(depth, min=1e-12), torch.zeros_like(depth)
-    )
-    shadow = shadow_ops.sample_csm(
-        gbuf.world_position, view_distance, ndotl, cascades, shadow_maps,
-        params.shadow_bias, normal=gbuf.normal, packed_taps=packed,
-    )
-    return shadow, cascades, temporal
+
+    def sample(gb, dep):
+        ndotl = torch.clamp((gb.normal * l[None, None, :]).sum(dim=-1, keepdim=True), 0.0, 1.0)
+        view_distance = torch.where(
+            dep > 0.0, z_near / torch.clamp(dep, min=1e-12), torch.zeros_like(dep)
+        )
+        return shadow_ops.sample_csm(
+            gb.world_position, view_distance, ndotl, cascades, shadow_maps,
+            params.shadow_bias, normal=gb.normal, packed_taps=packed,
+        )
+
+    return sample(gbuf, depth), cascades, temporal, sample
 
 
 def _half_rate(config: RenderConfig, h: int, w: int) -> bool:
-    """Screen-space GI and AO shade the [::2, ::2] grid (config.half_rate_gi)."""
-    return config.half_rate_gi and h % 2 == 0 and w % 2 == 0
+    """Screen-space GI and AO shade the [::2, ::2] grid (config.half_rate_gi);
+    under VRSAA they already shade the coarse grid."""
+    return (config.half_rate_gi and config.aa_mode != AAMode.VRSAA
+            and h % 2 == 0 and w % 2 == 0)
 
 
 def _ssao(cam_pos, z_near, params, config, gbuf, depth):
@@ -345,9 +352,12 @@ def _rtgi(scene, view, params, temporal, config, gbuf, depth):
     """(GI (H, W, 3), next temporal state): per-pixel RTGI (gi/rtgi.cpp:69-139;
     bounce count r.GI.RT.Bounces), the a-trous reconstruction of the 1-spp
     signal (the rtgi overlay filter), then the reprojected accumulation of the
-    pre-albedo irradiance (the vendor-denoiser slot), modulated by base color."""
+    pre-albedo irradiance (the vendor-denoiser slot), modulated by base color.
+    Under VRSAA the frame shades the coarse grid and the accumulation is skipped,
+    as in the JAX frame: the render-sized history is never read."""
     h, w = depth.shape
-    if tuple(temporal.rtgi_history.shape) != (h, w, 3):
+    accumulate = config.aa_mode != AAMode.VRSAA
+    if accumulate and tuple(temporal.rtgi_history.shape) != (h, w, 3):
         raise ValueError(
             f"TemporalState.rtgi_history {tuple(temporal.rtgi_history.shape)} != {(h, w, 3)}: "
             "build the state with temporal_state_for(config)"
@@ -360,11 +370,55 @@ def _rtgi(scene, view, params, temporal, config, gbuf, depth):
     )
     irr = atrous_filter(irr, depth, gbuf.normal, gbuf.valid, sigma_z=params.atrous_sigma_z,
                         sigma_n=params.atrous_sigma_n)
+    if not accumulate:
+        return irr * gbuf.base_color, temporal
     mv = taa_ops.motion_vectors(gbuf.world_position, gbuf.valid, _f32(view.last_view_proj, dev),
                                 _f32(view.unjittered_view_proj, dev))
     irr, history = temporal_accumulate(irr, temporal.rtgi_history, temporal.rtgi_valid, mv)
     valid = torch.ones((), dtype=torch.bool, device=dev)
     return irr * gbuf.base_color, temporal._replace(rtgi_history=history, rtgi_valid=valid)
+
+
+def _vrsaa_fine_pass(scene, cam_pos, params, config, setup, attr_planes, flags, vis_ss,
+                     depth_ss, lit, csm_sample, shadow, gi, ao, sky_img):
+    """(resolved lit (H, W, 3), dropped () i32): the quads with an id or depth
+    edge among their 4 samples, or a luminance contrast with a neighbour, enter
+    the worklist up to the budget; their 3 other samples are resolved and
+    lit (CSM sampled at each sample; RT shadows, GI, AO and sky fetched from
+    the quad's coarse value, as coarse-rate VRS does for them) and averaged with
+    the coarse shade."""
+    h, w = lit.shape[:2]
+    fine = vrsaa_ops.detect_fine_quads(vis_ss, depth_ss) | vrsaa_ops.luminance_contrast(lit)
+    budget = max(1, int(config.vrsaa_budget * h * w))
+    qy, qx, live, dropped = vrsaa_ops.fine_worklist(fine, budget)
+    offs = ((0, 1), (1, 0), (1, 1))
+    pys = torch.stack([qy * 2 + dy for dy, _ in offs], dim=1)  # (B, 3)
+    pxs = torch.stack([qx * 2 + dx for _, dx in offs], dim=1)
+    flat_idx = pys * (2 * w) + pxs
+    vis_f = vis_ss.reshape(-1)[flat_idx]
+    depth_f = depth_ss.reshape(-1)[flat_idx]
+    gbuf_f = resolve_gbuffer(scene, setup, vis_f, depth_f, attr_planes=attr_planes,
+                             pixel_coords=(pxs.to(torch.float32), pys.to(torch.float32)),
+                             **flags)
+    quad = torch.clamp(qy * w + qx, max=h * w - 1)
+
+    def quad_fetch(img):  # coarse (h, w, C) values at the quads -> (B, 1, C)
+        return img.reshape(h * w, -1)[quad][:, None, :]
+
+    if csm_sample is not None:
+        shadow_f = csm_sample(gbuf_f, depth_f)
+    elif shadow is not None:
+        shadow_f = quad_fetch(shadow)
+    else:
+        shadow_f = None
+    direct_f = lighting.sun_lighting(
+        gbuf_f, cam_pos, scene.sun_direction, scene.sun_color, shadow_f, params.sun_exposure,
+    )
+    lit_f = lighting.compose_lit_scene(
+        gbuf_f, direct_f, gi=quad_fetch(gi) if gi is not None else None,
+        ao=quad_fetch(ao) if ao is not None else None, sky=quad_fetch(sky_img),
+    )
+    return vrsaa_ops.resolve_quads(lit, lit_f, qy, qx, live), dropped
 
 
 def _taa(view, temporal, config, gbuf, lit):
@@ -401,7 +455,9 @@ def render_frame(
 
     Each stage runs inside a ``torch.profiler.record_function`` range named
     ``frame/<stage>``, so a profile of the frame sums device time by stage."""
-    check_slice(config)
+    vrsaa = config.aa_mode == AAMode.VRSAA
+    if vrsaa:
+        _check_vrsaa(config)
     _require_bvh(scene, config)
     dev = scene.positions.device
     h, w = config.render_height, config.render_width
@@ -434,7 +490,20 @@ def render_frame(
         use_emission=config.use_emission,
     )
     with record_function("frame/resolve"):
-        gbuf = resolve_gbuffer(scene, setup, vis, depth, **flags)
+        if vrsaa:
+            # Every stage from here shades the coarse grid: the quads' top-left
+            # samples, at their supersampled pixel coordinates.
+            vis_ss, depth_ss = vis, depth
+            h, w = h // 2, w // 2
+            vis = vis_ss[::2, ::2].contiguous()
+            depth = depth_ss[::2, ::2].contiguous()
+            attr_planes = pack_attribute_planes(scene, setup)
+            px = (torch.arange(w, dtype=torch.float32, device=dev) * 2.0)[None, :].expand(h, w)
+            py = (torch.arange(h, dtype=torch.float32, device=dev) * 2.0)[:, None].expand(h, w)
+            gbuf = resolve_gbuffer(scene, setup, vis, depth, attr_planes=attr_planes,
+                                   pixel_coords=(px, py), **flags)
+        else:
+            gbuf = resolve_gbuffer(scene, setup, vis, depth, **flags)
     with record_function("frame/sky"):
         if config.sky:
             sky_img = sky.sky_background(
@@ -443,10 +512,10 @@ def render_frame(
             )
         else:
             sky_img = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
-    cascades = shadow = None
+    cascades = shadow = csm_sample = None
     if config.shadow_mode == ShadowMode.CSM:
         with record_function("frame/csm"):
-            shadow, cascades, temporal = _shadows(
+            shadow, cascades, temporal, csm_sample = _shadows(
                 scene, inv_view, p00, p11, z_near, params, temporal, config, gbuf, depth,
             )
     elif config.shadow_mode == ShadowMode.RT:
@@ -486,6 +555,13 @@ def render_frame(
     if config.translucency:
         with record_function("frame/translucency"):
             lit = _translucency(scene, view, params, config, setup, depth, lit, flags)
+    vrsaa_dropped = None
+    if vrsaa:
+        with record_function("frame/vrsaa"):
+            lit, vrsaa_dropped = _vrsaa_fine_pass(
+                scene, cam_pos, params, config, setup, attr_planes, flags, vis_ss, depth_ss,
+                lit, csm_sample, shadow, gi, ao, sky_img,
+            )
     if config.aa_mode == AAMode.TAA:
         with record_function("frame/taa"):
             lit, motion, temporal = _taa(view, temporal, config, gbuf, lit)
@@ -499,7 +575,7 @@ def render_frame(
     next_temporal = temporal._replace(frame_index=temporal.frame_index + 1)
     outputs = FrameOutputs(
         image=image, hdr=lit, depth=depth, visibility=vis, gbuffer=gbuf, csm=cascades,
-        motion=motion,
+        motion=motion, vrsaa_dropped=vrsaa_dropped,
     )
     return outputs, next_temporal
 
@@ -507,5 +583,4 @@ def render_frame(
 def make_renderer(config: RenderConfig):
     """The frame callable ``(scene, view, params, temporal) -> (FrameOutputs,
     TemporalState)`` with ``config`` bound, as bench.py uses the JAX one."""
-    check_slice(config)
     return partial(render_frame, config=config)

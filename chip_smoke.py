@@ -106,20 +106,40 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    4, with exactly 6 raster (as A) and 2 traversal launches per frame and its
    peak device memory; GI changes the HDR; (c) the frame at 128^2 with a
    smaller cache on the card and on the CPU;
-15. A and B at 128^2, card against CPU, with phase 5's thresholds;
-16. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+15. the VRSAA frame (the CLI's --aa vrsaa: frame A rendered at 3840x2176 into a
+   1920x1088 output, translucency off): (a) the kernel against its plain
+   version at the frame's 3840x2176 main view with the alpha grid, bit-equal,
+   with call ms, kernel-only time, bound and work counts as in phase 3; (b) the
+   frame timed as phase 4, with exactly 4 raster launches per frame (occlusion
+   phases 1 and 2 at 3840x2176, cascade 0, one far cascade) and no traversal
+   launch; (c) the fine-quad count, the budget (vrsaa_budget 0.25 of the
+   coarse grid), vrsaa_dropped and the peak device memory, the HDR finite; (d)
+   the frame at 128^2 output (256^2 render) on the card and on the CPU, with
+   phase 5's thresholds and equal dropped counts;
+16. the headless CLI, ``headless.main([...])`` in this process on the card at
+   1920x1088 on courtyard-big, the PNGs under build/cli/: --aa taa --frames 3
+   --orbit 0.02 --interpolate (both PNGs), --aa vrsaa --frames 2, --set
+   r.GI.Mode=1 --set r.GI.LPV.Exposure=40 --visualize lpv-gv, --gi lpv
+   --visualize lpv-radiance and vpl, --gi probes --visualize probes, --set list,
+   and --scene of a glTF with ETC1S and UASTC KTX2 textures written by the
+   port's ktx2.write_ktx2; each run must exit 0 with exactly its launches
+   (counted from the code beside the runs) and print its per-frame ms; then the
+   eight frame visualizers through visualize() on the TAA run's outputs, with
+   none and overdraw raising;
+17. A and B at 128^2, card against CPU, with phase 5's thresholds;
+18. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
    the raster family, #5 the gather, each with its call time ``ms``, its
    kernel-only time ``kernel_ms`` and its bound; #1 also at the RSM call site,
-   ``rsm_*``; then the port-queue traversal kernel, at the shadow site with the
-   other sites as ``rtao_*``, ``primary_*``, ``rtgi_*``, ``rtgi_shadow_*``,
-   ``peel_*``, ``probe_*`` and ``probe_shadow_*``), the card line, and the final
-   JSON line.
+   ``rsm_*``, and at the VRSAA main view, ``vrsaa_*``; then the port-queue
+   traversal kernel, at the shadow site with the other sites as ``rtao_*``,
+   ``primary_*``, ``rtgi_*``, ``rtgi_shadow_*``, ``peel_*``, ``probe_*`` and
+   ``probe_shadow_*``), the card line, and the final JSON line.
 
-Launch counts are read per path (the frames of phases 4, 7, 8, 12, 13 and 14, the
-gather tool of phase 9, the entry-point calls of phase 10, the microbench of
-phase 11): every count is set to 0 just before a path runs and read just after,
-so the launches of the comparisons never count; every path but phases 12-14's
-must make no traversal launch.
+Launch counts are read per path (the frames of phases 4, 7, 8, 12-15, the gather
+tool of phase 9, the entry-point calls of phase 10, the microbench of phase 11,
+each CLI run of phase 16): every count is set to 0 just before a path runs and
+read just after, so the launches of the comparisons never count; every path but
+phases 12-14's and the CLI's probe run must make no traversal launch.
 
 It needs torch with CUDA and the repository beside it; it imports no JAX.
 """
@@ -815,9 +835,10 @@ def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
 
 def card_vs_cpu(label="raster-only", overrides=None, curtains=False, cfg=None,
                 max_far=0.005, max_depth=0.005, moving=False):
-    """Phases 5, 8 and 12: a 128^2 courtyard frame on the card and on the CPU, 3
-    chained frames: (the largest share of pixels off by more than one u8 step,
-    the largest share of depths differing, each within its bound).
+    """Phases 5, 8 and 12-15: a 128^2 courtyard frame on the card and on the CPU,
+    3 chained frames: (the largest share of pixels off by more than one u8 step,
+    the largest share of depths differing, each within its bound; under VRSAA
+    also the dropped counts, equal).
     ``overrides`` (RenderConfig fields) turn the raster-only config into A or B;
     ``cfg`` replaces it (the parity frame renders 128^2 into a 192^2 output).
     ``moving``: the camera steps and turns each frame with that frame's TAA
@@ -856,17 +877,20 @@ def card_vs_cpu(label="raster-only", overrides=None, curtains=False, cfg=None,
         frames = []
         for view in views:
             out, temp = renderer(scene, view, RenderParams.default(), temp)
-            frames.append((out.image.cpu().numpy(), out.depth.cpu().numpy()))
+            dropped = None if out.vrsaa_dropped is None else int(out.vrsaa_dropped)
+            frames.append((out.image.cpu().numpy(), out.depth.cpu().numpy(), dropped))
         outs[dev] = frames
     pairs = list(zip(outs["cuda"], outs["cpu"]))
     img_d = max(int(np.abs(a[0].astype(int) - b[0].astype(int)).max()) for a, b in pairs)
     far = max(float((np.abs(a[0].astype(int) - b[0].astype(int)) > 1).mean()) for a, b in pairs)
     dep_d = max(float(np.abs(a[1] - b[1]).max()) for a, b in pairs)
     dep_share = max(float((a[1] != b[1]).mean()) for a, b in pairs)
+    dropped = [(a[2], b[2]) for a, b in pairs]
     print(f"card vs CPU, {label} {cfg.render_width}^2 courtyard, 3 frames: max|d image|={img_d} "
           f"(share > 1 step {far:.5f}, bound {max_far}), max|d depth|={dep_d} "
-          f"(share differing {dep_share:.5f}, bound {max_depth})")
-    return far <= max_far and dep_share <= max_depth
+          f"(share differing {dep_share:.5f}, bound {max_depth})"
+          + (f"; VRSAA dropped (card, CPU) {dropped}" if dropped[0][0] is not None else ""))
+    return far <= max_far and dep_share <= max_depth and all(a == b for a, b in dropped)
 
 
 def parity_view(cfg):
@@ -1207,6 +1231,201 @@ def probes_phase(scene, view, profile: bool, card: str):
     return sites, launches, problems
 
 
+def vrsaa_phase(scene, profile: bool, card: str):
+    """Phase 15: (the 3840x2176 main view's results, launches by entry point,
+    failed checks) of the CLI's --aa vrsaa frame on the bench scene."""
+    from androidrenderer_tpu_torch.config import AAMode, RenderParams, default_frame_config
+    from androidrenderer_tpu_torch.render import frame as frame_mod
+    from androidrenderer_tpu_torch.render import make_renderer
+    from androidrenderer_tpu_torch.render.frame import main_view_setup
+
+    # Frame A as the CLI's --aa vrsaa builds it (headless.py: geometry at twice
+    # the output, translucency off).
+    cfg = default_frame_config(1920, 1088, aa_mode=AAMode.VRSAA, translucency=False).replace(
+        render_width=3840, render_height=2176)
+    view = parity_view(cfg)
+    _, opaque, grid = main_view_setup(scene, view, cfg)
+    (_, vis), site = compare("rasterize VRSAA main view + alpha grid", entry_points()["rasterize"],
+                             opaque, cfg.render_height, cfg.render_width, alpha_grid=grid)
+    covered = (vis >= 0).float().mean().item()
+    if not site["eq"] or covered < 0.5:
+        return site, {}, [f"the 2x main view: bit-equal={site['eq']}, covered {covered:.4f}"]
+    # render/frame.py under VRSAA: _occlusion_raster's two phases at 3840x2176,
+    # then _shadows' staggered cascades (cascade 0 and one far cascade with
+    # shadow_update_budget=1); no translucency, no traced switch.
+    ms, launches, _, problems, out, temp = run_frames(
+        "frame VRSAA", cfg, scene, view, profile, {"rasterize": 4})
+    print(f"frame_vrsaa_ms: {ms:.3f} ({card})")
+    # One more frame, recording the fine-quad mask the worklist compacts.
+    seen = {}
+    worklist = frame_mod.vrsaa_ops.fine_worklist
+
+    def recorded(fine, budget):
+        seen.update(fine=int(fine.sum()), budget=budget)
+        return worklist(fine, budget)
+
+    frame_mod.vrsaa_ops.fine_worklist = recorded
+    try:
+        out, _ = make_renderer(cfg)(scene, view, RenderParams.default(), temp)
+    finally:
+        frame_mod.vrsaa_ops.fine_worklist = worklist
+    dropped = int(out.vrsaa_dropped)
+    print(f"frame VRSAA: {seen['fine']} fine quads of {cfg.output_width * cfg.output_height}, "
+          f"budget {seen['budget']}, vrsaa_dropped {dropped}; coarse grid "
+          f"{tuple(out.depth.shape)}, HDR finite {bool(out.hdr.isfinite().all())}")
+    if dropped != max(seen["fine"] - seen["budget"], 0):
+        problems.append(f"vrsaa_dropped {dropped} != {seen['fine']} fine quads - budget")
+    if tuple(out.depth.shape) != (cfg.output_height, cfg.output_width):
+        problems.append(f"the coarse grid is {tuple(out.depth.shape)}")
+    n = 128
+    small = default_frame_config(n, n, shadow_cascade_resolution=n, aa_mode=AAMode.VRSAA,
+                                 translucency=False).replace(render_width=2 * n,
+                                                             render_height=2 * n)
+    if not card_vs_cpu("frame VRSAA (128^2 output, 256^2 render)", cfg=small, curtains=True):
+        problems.append("the 128^2 VRSAA frames on the card and the CPU disagree")
+    return site, launches, problems
+
+
+def write_textured_gltf(folder: Path) -> Path:
+    """A one-quad glTF whose base-color texture is ETC1S KTX2 and whose
+    metal-rough texture is UASTC KTX2 (neither Zstd), written by the port's
+    ktx2.write_ktx2, as tests/test_torch_app.py writes one."""
+    import base64
+
+    import numpy as np
+
+    from androidrenderer_tpu_torch.scene import ktx2
+
+    folder.mkdir(parents=True, exist_ok=True)
+    img = np.random.default_rng(12).integers(0, 256, (16, 16, 4)).astype(np.uint8)
+    img[..., 3] = 255
+    levels = [img, img[::2, ::2].copy(), img[::4, ::4].copy()]
+    (folder / "base.ktx2").write_bytes(ktx2.write_ktx2(levels, fmt="etc1s"))
+    (folder / "mr.ktx2").write_bytes(ktx2.write_ktx2(levels, fmt="uastc"))
+    pos = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    nrm = np.tile(np.array([[0, 0, 1]], np.float32), (4, 1))
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint16)
+    buf = pos.tobytes() + nrm.tobytes() + uv.tobytes() + idx.tobytes()
+    views = [(0, 48), (48, 48), (96, 32), (128, 12)]
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "NORMAL": 1, "TEXCOORD_0": 2},
+                                    "indices": 3, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                                "metallicRoughnessTexture": {"index": 1}}}],
+        "textures": [{"extensions": {"KHR_texture_basisu": {"source": k}}} for k in (0, 1)],
+        "images": [{"uri": f"{name}.ktx2", "mimeType": "image/ktx2"} for name in ("base", "mr")],
+        "buffers": [{"byteLength": len(buf), "uri": "data:application/octet-stream;base64,"
+                     + base64.b64encode(buf).decode()}],
+        "bufferViews": [{"buffer": 0, "byteOffset": o, "byteLength": n} for o, n in views],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 4, "type": "VEC3",
+             "min": [-1, -1, 0], "max": [1, 1, 0]},
+            {"bufferView": 1, "componentType": 5126, "count": 4, "type": "VEC3"},
+            {"bufferView": 2, "componentType": 5126, "count": 4, "type": "VEC2"},
+            {"bufferView": 3, "componentType": 5123, "count": 6, "type": "SCALAR"},
+        ],
+    }
+    path = folder / "scene.gltf"
+    path.write_text(json.dumps(gltf))
+    return path
+
+
+def cli_phase(card: str):
+    """Phase 16: (launches by entry point summed over the runs, failed checks)
+    of the headless CLI run in this process on the card, at 1920x1088 on
+    courtyard-big (the PNGs under build/cli/), one run per switch."""
+    import torch
+
+    from androidrenderer_tpu_torch.app import application, headless
+    from androidrenderer_tpu_torch.ops.visualize import MODES, visualize
+
+    out_dir = REPO / "build" / "cli"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    size = ["--width", "1920", "--height", "1088"]
+    big = ["--scene", "courtyard-big"] + size
+    gltf = write_textured_gltf(out_dir / "gltf")
+    # Raster launches per frame of the CLI's config on courtyard-big (no blend
+    # triangles, so no translucency; shadow_update_budget=0, so all 4 cascades
+    # every frame): 2 occlusion phases + 4 cascades = 6. LPV GI
+    # (lpv_update_budget=0) rebuilds all 4 cascades' RSMs every frame: + 4; each
+    # LPV visualizer rebuilds them once more (+ 4) and vpl renders one more RSM
+    # (+ 1). The probe update traces twice per frame (probe rays, their sun
+    # rays). The glTF quad: 2 + 4.
+    runs = (  # (label, PNG, arguments, launches per run)
+        ("--aa taa --frames 3 --interpolate", "taa", big + [
+            "--aa", "taa", "--frames", "3", "--orbit", "0.02", "--interpolate"],
+         {"rasterize": 3 * 6}),
+        ("--aa vrsaa --frames 2", "vrsaa", big + ["--aa", "vrsaa", "--frames", "2"],
+         {"rasterize": 2 * 6}),
+        ("--set r.GI.Mode=1 --set r.GI.LPV.Exposure=40 --visualize lpv-gv", "lpv-gv",
+         big + ["--set", "r.GI.Mode=1", "--set", "r.GI.LPV.Exposure=40", "--visualize",
+                "lpv-gv"], {"rasterize": 10 + 4}),
+        ("--gi lpv --visualize lpv-radiance", "lpv-radiance",
+         big + ["--gi", "lpv", "--visualize", "lpv-radiance"], {"rasterize": 10 + 4}),
+        ("--gi lpv --visualize vpl", "vpl", big + ["--gi", "lpv", "--visualize", "vpl"],
+         {"rasterize": 10 + 5}),
+        ("--gi probes --visualize probes", "probes",
+         big + ["--gi", "probes", "--visualize", "probes"], {"rasterize": 6, "trace_rays": 2}),
+        ("--set list", None, ["--set", "list"], {}),
+        ("--scene <ETC1S + UASTC KTX2 glTF>", "gltf", ["--scene", str(gltf)] + size,
+         {"rasterize": 6}),
+    )
+    apps = []
+
+    class Recorded(application.Application):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            apps.append(self)
+
+    eps = entry_points()
+    totals = {name: 0 for name in eps}
+    problems = []
+    original = application.Application
+    application.Application = Recorded  # headless.main imports it when it runs
+    try:
+        for label, name, args, per_run in runs:
+            png = out_dir / f"{name or 'list'}.png"
+            for f in eps.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            rc = headless.main(args + ["--out", str(png)])
+            torch.cuda.synchronize()
+            launches = {name: f.launches for name, f in eps.items()}
+            print(f"CLI {label}: exit {rc} in {time.perf_counter() - t0:.1f} s; launches "
+                  f"{', '.join(f'{k} {v}' for k, v in launches.items() if v) or 'none'}")
+            if rc != 0:
+                problems.append(f"CLI {label} exited {rc}")
+            for entry, n in launches.items():
+                totals[entry] += n
+                if n != per_run.get(entry, 0):
+                    problems.append(f"CLI {label}: {entry} launches {n} != {per_run.get(entry, 0)}")
+            written = [png] + ([Path(f"{png}.mid.png")] if "--interpolate" in args else [])
+            if name and not all(p.is_file() for p in written):
+                problems.append(f"CLI {label} wrote no {written}")
+    finally:
+        application.Application = original
+    # The eight frame visualizers on the first run's last outputs (its TAA frame);
+    # "none" and "overdraw" raise, as in the JAX package.
+    out = apps[0]._last_outputs
+    for mode in MODES:
+        try:
+            img = visualize(out, mode)
+        except ValueError:
+            if mode not in ("none", "overdraw"):
+                problems.append(f"visualize {mode} raised")
+            continue
+        if mode in ("none", "overdraw"):
+            problems.append(f"visualize {mode} did not raise")
+        elif tuple(img.shape) != (1088, 1920, 3) or img.dtype != torch.uint8:
+            problems.append(f"visualize {mode}: {tuple(img.shape)} {img.dtype}")
+    print(f"visualize on the TAA run's outputs: {', '.join(MODES[1:-1])} drawn; none and "
+          f"overdraw raise ({card})")
+    return totals, problems
+
+
 def main(argv) -> int:
     import torch
 
@@ -1224,6 +1443,7 @@ def main(argv) -> int:
     from androidrenderer_tpu_torch.ops.rt.traverse import LIBRARY as TRAVERSE_LIBRARY
 
     # 1. the card
+    started = time.perf_counter()
     dev = init_device("cuda")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -1336,23 +1556,36 @@ def main(argv) -> int:
     if problems:
         return fail("probe frame: " + "; ".join(problems))
     rt_sites.update(probe_sites)
+
+    # 15. the VRSAA frame
+    vrsaa, path_launches["vrsaa"], problems = vrsaa_phase(scene, profile, f"{kind}; {smi}")
+    if problems:
+        return fail("VRSAA frame: " + "; ".join(problems))
     del scene
     torch.cuda.empty_cache()
 
-    # 15. A and B at 128^2, card vs CPU
+    # 16. the headless CLI
+    t0 = time.perf_counter()
+    path_launches["cli"], problems = cli_phase(f"{kind}; {smi}")
+    if problems:
+        return fail("CLI: " + "; ".join(problems))
+    print(f"CLI phase: {time.perf_counter() - t0:.1f} s")
+
+    # 17. A and B at 128^2, card vs CPU
     for label, overrides in (("A", {}), ("B", {"alpha_bitmap": False})):
         overrides = dict(occlusion_culling=True, translucency=True, **overrides)
         if not card_vs_cpu(f"frame {label}", overrides, curtains=True):
             return fail(f"frame {label}: card and CPU frames disagree")
 
-    # 16. results
+    # 18. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 
     fused, hybrid = entry["rasterize_fused"], entry["rasterize_hybrid"]
     kernels = [
         dict(result, launches=launched("rasterize"),
-             max_abs_err=max(result["max_abs_err"], entry["rasterize"]["err"], rsm["err"]),
+             max_abs_err=max(result["max_abs_err"], entry["rasterize"]["err"], rsm["err"],
+                             vrsaa["err"]),
              translucency_layer1_ms=entry["rasterize"]["ms"],
              translucency_layer1_kernel_ms=entry["rasterize"]["kernel_ms"],
              translucency_layer1_parent_kernel_ms=entry["rasterize"]["parent_kernel_ms"],
@@ -1360,7 +1593,9 @@ def main(argv) -> int:
              translucency_layer1_bound_ms=entry["rasterize"]["bound_ms"],
              rsm_ms=rsm["ms"], rsm_kernel_ms=rsm["kernel_ms"],
              rsm_parent_kernel_ms=rsm["parent_kernel_ms"], rsm_plain_ms=rsm["plain_ms"],
-             rsm_bound_ms=rsm["bound_ms"], rsm_bound_by=rsm["bound_by"]),
+             rsm_bound_ms=rsm["bound_ms"], rsm_bound_by=rsm["bound_by"],
+             **{f"vrsaa_{k}": vrsaa[k] for k in ("ms", "kernel_ms", "parent_kernel_ms",
+                                                 "plain_ms", "bound_ms", "bound_by", "work")}),
     ]
     def bench(label):
         return {mode: t[label] for mode, t in bench_ms.items()}
@@ -1421,6 +1656,8 @@ def main(argv) -> int:
            for site in ("rtao", "primary", "rtgi", "rtgi_shadow", "peel", "probe", "probe_shadow")
            for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "rays")},
     ))
+    print(f"chip_smoke: {time.perf_counter() - started:.1f} s from the card's check to the "
+          f"results")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

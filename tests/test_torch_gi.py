@@ -488,15 +488,17 @@ def test_gi_frame_state_matches_jax(gi_frames):
 # -------------------------------------------------------- switches and state
 
 def test_check_slice_raises_only_for_vrsaa_and_gi_needs_a_bvh():
-    """RT and probe GI pass check_slice; VRSAA still raises naming its item. An
-    RT or probe GI mode over a scene without a BVH raises a ValueError naming
-    the remedy."""
+    """RT and probe GI, and VRSAA over them, pass make_renderer: the frame's
+    check_slice, which raised for VRSAA, is gone. VRSAA with translucency, or
+    at a render size other than twice the output, raises the JAX frame's
+    ValueError when rendered (before any GI work). An RT or probe GI mode over
+    a scene without a BVH raises a ValueError naming the remedy."""
+    assert not hasattr(frame_mod, "check_slice")
     cfg = default_frame_config(N, N)
     for gi in (GIMode.RT, GIMode.PROBES):
-        frame_mod.check_slice(cfg.replace(gi_mode=gi, shadow_mode=ShadowMode.RT,
-                                          ao_mode=AOMode.RT))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        frame_mod.check_slice(cfg.replace(aa_mode=AAMode.VRSAA))
+        c = cfg.replace(gi_mode=gi, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
+        make_renderer(c)
+        make_renderer(c.replace(aa_mode=AAMode.VRSAA))
     leaves, _ = torch_procedural.cornell_scene().bake(with_bvh=False)
     scene = scene_arrays_from_numpy({k: v for k, v in leaves.items()
                                      if not k.startswith("bvh.")}, "cpu")
@@ -506,6 +508,11 @@ def test_check_slice_raises_only_for_vrsaa_and_gi_needs_a_bvh():
         with pytest.raises(ValueError, match=f"gi_mode={gi.name}.*with_bvh"):
             make_renderer(c)(scene, cam.view_data(), RenderParams.default(),
                              temporal_state_for(c, device="cpu"))
+        v = c.replace(aa_mode=AAMode.VRSAA, output_width=N // 2, output_height=N // 2)
+        for c2, match in ((v, "translucency"), (v.replace(output_width=N), "2x")):
+            with pytest.raises(ValueError, match=match):
+                make_renderer(c2)(scene, cam.view_data(), RenderParams.default(),
+                                  temporal_state_for(c2, device="cpu"))
 
 
 def test_temporal_state_carries_rtgi_and_probe_leaves():

@@ -18,7 +18,9 @@ random triangles (any-hit and closest-hit), with per-ray bounds, an active
 mask, a step cap that stops rays, the alpha fixture's bitmaps and its work
 counts, and the masked any-hit rule of the exact alpha peel; its wrapper's
 checks, the exact peel on the card against the CPU, and the RT, RTGI and probe
-frames' launches at 128^2:
+frames' launches at 128^2. The rasterizer is also held bit-equal at VRSAA's
+3840x2176 main view, and the VRSAA frame's launches and dropped count are
+checked against the CPU frame's at 128^2:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py -m cuda \
         -k 'traverse or rt_frame or peel or gi_frame'
@@ -645,3 +647,66 @@ def test_gi_frame_traces_through_the_kernel(cuda_device, gi):
         if dev.type == "cuda":
             assert trace_rays.launches == 3 * traces and rasterize.launches == 3 * rasters
     assert (np.abs(images["cuda"] - images["cpu"]).max(-1) > 1).mean() <= 0.01
+
+
+@pytest.mark.cuda
+def test_raster_kernel_at_the_vrsaa_size(cuda_device):
+    """The main view at VRSAA's 3840x2176 (twice the CLI's 1920x1088 output),
+    with the alpha grid, on the default courtyard: bit-equal to the plain
+    version, its work counts equal to the plain mirror's."""
+    from androidrenderer_tpu_torch.config import AAMode, raster_only_config
+    from androidrenderer_tpu_torch.ops.raster import pack_fused_records
+    from androidrenderer_tpu_torch.ops.raster.raster import prepare_raster, span_work, work_counts
+    from androidrenderer_tpu_torch.render.frame import main_view_setup
+
+    cfg = raster_only_config(1920, 1088, aa_mode=AAMode.VRSAA).replace(
+        render_width=3840, render_height=2176)
+    scene, _ = courtyard_scene().build(device=cuda_device, with_bvh=False)
+    cam = Camera(fov_degrees=75.0, aspect=3840 / 2176, render_resolution=(3840, 2176))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    _, opaque, grid = main_view_setup(scene, cam.view_data(), cfg)
+    got = rasterize(opaque, 2176, 3840, alpha_grid=grid)
+    want = rasterize_reference(opaque, 2176, 3840, alpha_grid=grid)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert (got[1] >= 0).float().mean().item() > 0.5
+    rec = pack_fused_records(opaque)
+    call = prepare_raster(rec, 2176, 3840, False, False, None, grid)
+    call.launch()
+    work = work_counts(call.counts)
+    assert all(work[k] == v for k, v in span_work(rec, 2176, 3840).items())
+
+
+@pytest.mark.cuda
+def test_vrsaa_frame_on_the_card(cuda_device):
+    """The CLI's --aa vrsaa frame (no translucency) at 128^2 output, 256^2
+    render, on the curtained courtyard: 4 raster launches per frame (two
+    occlusion phases, cascade 0 and one far cascade) and none of the traversal;
+    the dropped count equals the CPU frame's, and the image the CPU's within
+    one u8 step."""
+    from androidrenderer_tpu_torch.config import AAMode, RenderParams, default_frame_config
+    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+    from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
+
+    cfg = default_frame_config(128, 128, shadow_cascade_resolution=128, translucency=False,
+                               aa_mode=AAMode.VRSAA, vrsaa_budget=0.05).replace(
+        render_width=256, render_height=256)
+    leaves, _ = courtyard_scene(curtains=True).bake()
+    cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(256, 256))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    outs = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = scene_arrays_from_numpy(leaves, dev)
+        renderer, temporal = make_renderer(cfg), temporal_state_for(cfg, device=dev)
+        trace_rays.launches = rasterize.launches = 0
+        for _ in range(2):
+            out, temporal = renderer(scene, cam.view_data(), RenderParams.default(), temporal)
+        outs[dev.type] = out
+        if dev.type == "cuda":
+            assert rasterize.launches == 8 and trace_rays.launches == 0
+    assert int(outs["cuda"].vrsaa_dropped) == int(outs["cpu"].vrsaa_dropped) > 0
+    assert torch.equal(outs["cuda"].depth.cpu(), outs["cpu"].depth)
+    img = {k: o.image.cpu().numpy().astype(int) for k, o in outs.items()}
+    assert np.abs(img["cuda"] - img["cpu"]).max() <= 1

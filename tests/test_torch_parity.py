@@ -691,16 +691,27 @@ def test_frame_stages_change_the_image(frames):
     assert int(outs["parity"].image.amax()) > int(outs["parity"].image.amin())
 
 
-def test_check_slice_raises_only_for_unported_switches():
+def test_check_slice_raises_only_for_unported_switches(courtyard):
+    """No switch is left unported: make_renderer takes the parity frame, TAA
+    without the upscale, RT shadows and AO, RT and probe GI, and VRSAA (the
+    frame's check_slice is gone). The parity frame switched to VRSAA renders at
+    less than twice its output and raises the JAX frame's ValueError, and so
+    does VRSAA with translucency, each before any work."""
     from androidrenderer_tpu_torch.config import AAMode, ShadowMode
+    from androidrenderer_tpu_torch.render import temporal_state_for
 
+    assert not hasattr(frame_mod, "check_slice")
     cfg = parity_frame_config(OUT, OUT, N, N)
-    frame_mod.check_slice(cfg)
-    frame_mod.check_slice(parity_frame_config(N, N, N, N))  # TAA, no upscale
-    # RT sun shadows and RTAO (tests/test_torch_rt.py), RT and probe GI
-    # (tests/test_torch_gi.py) are ported.
-    frame_mod.check_slice(cfg.replace(shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT))
-    for gi in (GIMode.RT, GIMode.PROBES):
-        frame_mod.check_slice(cfg.replace(gi_mode=gi))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        make_renderer(cfg.replace(aa_mode=AAMode.VRSAA))
+    for c in (cfg, parity_frame_config(N, N, N, N),
+              cfg.replace(shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT),
+              cfg.replace(gi_mode=GIMode.RT), cfg.replace(gi_mode=GIMode.PROBES),
+              cfg.replace(aa_mode=AAMode.VRSAA)):
+        make_renderer(c)
+    scene = courtyard[1]
+    view = _views()[0]
+    vrsaa = parity_frame_config(N // 2, N // 2, N, N, aa_mode=AAMode.VRSAA)
+    for c, match in ((cfg.replace(aa_mode=AAMode.VRSAA), "2x"),
+                     (vrsaa.replace(translucency=True), "translucency")):
+        with pytest.raises(ValueError, match=match):
+            make_renderer(c)(scene, view, RenderParams.default(),
+                             temporal_state_for(c, device="cpu"))

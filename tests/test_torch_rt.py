@@ -547,21 +547,28 @@ def test_rt_shadows_darken_and_rtao_reaches_the_composite(rt_frames):
 
 
 def test_rt_switches_need_a_bvh():
-    """check_slice lets RT shadows and AO through (default_frame_config, the
-    CLI's --shadow rt --ao rt), and RT and probe GI, and still names VRSAA's
-    item; a scene without a BVH raises a ValueError naming the remedy, for
-    every switch that traces rays."""
+    """make_renderer takes RT shadows and AO (default_frame_config, the CLI's
+    --shadow rt --ao rt), RT and probe GI, and VRSAA over them: the frame has
+    no unported switch left (its check_slice is gone). VRSAA with translucency,
+    or at a render size other than twice the output, raises the JAX frame's
+    ValueError when rendered. A scene without a BVH raises a ValueError naming
+    the remedy, for every switch that traces rays."""
+    assert not hasattr(frame_mod, "check_slice")
     cfg = default_frame_config(N, N, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
-    frame_mod.check_slice(cfg)
-    for gi in (GIMode.RT, GIMode.PROBES):
-        frame_mod.check_slice(cfg.replace(gi_mode=gi))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        frame_mod.check_slice(cfg.replace(aa_mode=AAMode.VRSAA))
+    for c in (cfg, cfg.replace(gi_mode=GIMode.RT), cfg.replace(gi_mode=GIMode.PROBES)):
+        make_renderer(c)
+        make_renderer(c.replace(aa_mode=AAMode.VRSAA))
     leaves, _ = torch_procedural.cornell_scene().bake(with_bvh=False)
     scene = scene_arrays_from_numpy({k: v for k, v in leaves.items()
                                      if not k.startswith("bvh.")}, "cpu")
     assert scene.bvh is None
     cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(N, N))
+    vrsaa = cfg.replace(aa_mode=AAMode.VRSAA, output_width=N // 2, output_height=N // 2)
+    for c, match in ((vrsaa, "translucency"), (cfg.replace(aa_mode=AAMode.VRSAA,
+                                                           translucency=False), "2x")):
+        with pytest.raises(ValueError, match=match):
+            make_renderer(c)(scene, cam.view_data(), RenderParams.default(),
+                             temporal_state_for(c, device="cpu"))
     for c in (cfg, default_frame_config(N, N, gi_mode=GIMode.RT),
               default_frame_config(N, N, gi_mode=GIMode.PROBES)):
         with pytest.raises(ValueError, match="with_bvh"):

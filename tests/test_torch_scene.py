@@ -106,7 +106,8 @@ def _strip_imports(text: str) -> str:
 @pytest.mark.parametrize(
     "rel",
     ["camera.py", "scene/mesh_storage.py", "scene/material_storage.py",
-     "scene/procedural.py"],
+     "scene/procedural.py", "utils/bitstream.py", "scene/uastc.py", "scene/basis_lz.py",
+     "scene/ktx2.py", "scene/gltf.py", "utils/image.py"],
 )
 def test_numpy_modules_are_copies(rel):
     """The numpy modules are carried over with only their imports changed."""
@@ -132,7 +133,9 @@ for name in ("ops.gather", "ops.cuda_build", "ops.raster.binning", "ops.raster.r
              "ops.raster.interpolate", "tools.microbench_pallas_gather", "tools.bench_raster",
              "tools.experiments.raster_touch", "tools.experiments.raster_lanes",
              "tools.experiments.raster_subfold", "tools.kernel_timing", "tools.raster_cuts",
-             "ops.sh", "ops.lpv", "ops.upsample", "ops.taa"):
+             "ops.sh", "ops.lpv", "ops.upsample", "ops.taa", "ops.vrsaa", "ops.interpolation",
+             "ops.visualize", "app.cvars", "app.application", "app.headless", "utils.image",
+             "utils.bitstream", "scene.uastc", "scene.basis_lz", "scene.ktx2", "scene.gltf"):
     assert "androidrenderer_tpu_torch." + name in sys.modules, name
 from androidrenderer_tpu_torch.camera import Camera
 from androidrenderer_tpu_torch.config import RenderParams, default_frame_config
@@ -148,6 +151,12 @@ cam.yaw = np.pi
 temporal = temporal_state_for(cfg, device="cpu")
 out, _ = make_renderer(cfg)(scene, cam.view_data(), RenderParams.default(), temporal)
 assert tuple(out.image.shape) == (128, 128, 3) and int(out.image.max()) > 0
+# The CLI's VRSAA frame, through its own entry point.
+import tempfile
+from androidrenderer_tpu_torch.app import headless
+with tempfile.TemporaryDirectory() as tmp:
+    assert headless.main(["--width", "128", "--height", "64", "--platform", "cpu",
+                          "--aa", "vrsaa", "--out", tmp + "/f.png"]) == 0
 leaked = sorted(m for m, mod in sys.modules.items()
                 if mod is not None and m.split(".")[0] in %r)
 assert not leaked, leaked
@@ -156,10 +165,10 @@ print("rendered without jax")
 
 
 def test_port_renders_without_jax():
-    """Every module of the package imports, the ported tools and design studies
-    by name among them, and the default frame with the exact alpha peel renders
-    a 128^2 cornell frame, with JAX, the JAX package and the repository's
-    tools/ blocked."""
+    """Every module of the package imports, the ported tools, design studies,
+    app layer and asset layer by name among them, the default frame with the
+    exact alpha peel renders a 128^2 cornell frame, and the CLI renders a VRSAA
+    frame, with JAX, the JAX package and the repository's tools/ blocked."""
     import os
     import subprocess
     import sys
@@ -184,7 +193,10 @@ def test_package_sources_import_no_jax():
         "ops/raster/interpolate.py", "tools/microbench_pallas_gather.py", "tools/bench_raster.py",
         "tools/experiments/raster_touch.py", "tools/experiments/raster_lanes.py",
         "tools/experiments/raster_subfold.py", "tools/kernel_timing.py", "tools/raster_cuts.py",
-        "ops/sh.py", "ops/lpv.py", "ops/upsample.py", "ops/taa.py",
+        "ops/sh.py", "ops/lpv.py", "ops/upsample.py", "ops/taa.py", "ops/vrsaa.py",
+        "ops/interpolation.py", "ops/visualize.py", "app/cvars.py", "app/application.py",
+        "app/headless.py", "utils/image.py", "utils/bitstream.py", "scene/uastc.py",
+        "scene/basis_lz.py", "scene/ktx2.py", "scene/gltf.py",
     } <= names
     for path in [*sources, REPO / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
