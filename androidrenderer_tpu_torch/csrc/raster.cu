@@ -10,6 +10,11 @@
 // too, each through its own entry point: raster_binned.py (_binned_kernel),
 // raster_fused.py (_fused_kernel) and raster_pallas.py (_raster_kernel).
 //
+// Band mode: the target holds rows [row_off, row_off + height) of a taller
+// frame; records stay in full-frame pixel space, every bbox clips to the band,
+// and a fragment at frame row y writes target row y - row_off, so a band is
+// bit-equal to those rows of the full raster.
+//
 // Contract, per pixel (x, y) at integer coordinates and per triangle t:
 //   d_i = A_i*x + B_i*y + C_i; covered when all d_i <= 0 and sid != 0, or all
 //   d_i >= 0 and sid < 0; z = (r . [x,y,1]) / (q . [x,y,1]), or the plane in
@@ -98,14 +103,15 @@ struct Box {
   int x0, y0, x1, y1;
 };
 
-// The record's bbox clipped to the target; false for a dead record or an
-// empty clipped bbox (ops/raster/raster.py::record_bboxes).
+// The record's bbox clipped to the target's rows [row_off, row_off + height)
+// of the frame; false for a dead record or an empty clipped bbox
+// (ops/raster/raster.py::record_bboxes).
 __device__ __forceinline__ bool live_box(float sid, float x0, float y0, float x1, float y1,
-                                         int height, int width, Box& b) {
+                                         int row_off, int height, int width, Box& b) {
   b.x0 = max(0, static_cast<int>(floorf(x0)));
-  b.y0 = max(0, static_cast<int>(floorf(y0)));
+  b.y0 = max(row_off, static_cast<int>(floorf(y0)));
   b.x1 = min(width - 1, static_cast<int>(ceilf(x1)));
-  b.y1 = min(height - 1, static_cast<int>(ceilf(y1)));
+  b.y1 = min(row_off + height - 1, static_cast<int>(ceilf(y1)));
   return sid != 0.0f && b.x1 >= b.x0 && b.y1 >= b.y0;
 }
 
@@ -154,7 +160,8 @@ __device__ __forceinline__ int2 block_append(bool small, bool large,
 }
 
 __global__ void __launch_bounds__(kPrepThreads) prep_kernel(
-    const float* __restrict__ recs, int n, int height, int width, uint4* __restrict__ clear,
+    const float* __restrict__ recs, int n, int row_off, int height, int width,
+    uint4* __restrict__ clear,
     long long clear_vec, unsigned int* __restrict__ clear_tail, int tail_words,
     int* __restrict__ small_ids, int* __restrict__ large_ids, int* __restrict__ large_units,
     unsigned long long* __restrict__ counts) {
@@ -171,7 +178,7 @@ __global__ void __launch_bounds__(kPrepThreads) prep_kernel(
   if (i < n) {
     const float* r = recs + i * kRec;
     Box b;
-    if (live_box(r[18], r[19], r[20], r[21], r[22], height, width, b)) {
+    if (live_box(r[18], r[19], r[20], r[21], r[22], row_off, height, width, b)) {
       const int bw = b.x1 - b.x0 + 1, bh = b.y1 - b.y0 + 1;
       units = ((bw + kTileCols - 1) / kTileCols) * ((bh + kTileRows - 1) / kTileRows);
       area = static_cast<unsigned long long>(bw) * static_cast<unsigned long long>(bh);
@@ -281,10 +288,12 @@ struct Tri {
 };
 
 // The contract at one pixel of triangle t: true when the fragment is accepted,
-// with its combine key (bits(z) << 32 | t, or bits(z) with kDepthOnly) and pixel.
+// with its combine key (bits(z) << 32 | t, or bits(z) with kDepthOnly) and
+// target pixel (frame row py is target row py - row_off).
 // ``words`` is the triangle's 256-bit alpha bitmap (kAlpha).
 template <bool kDepthOnly, bool kAffineZ, bool kZLimit, bool kAlpha>
-__device__ __forceinline__ bool fragment(const Tri& T, int t, int px, int py, int width,
+__device__ __forceinline__ bool fragment(const Tri& T, int t, int px, int py, int row_off,
+                                         int width,
                                          const float* __restrict__ zlim,
                                          const unsigned int* words,
                                          unsigned long long& key, size_t& pix) {
@@ -303,7 +312,7 @@ __device__ __forceinline__ bool fragment(const Tri& T, int t, int px, int py, in
     z = __fdiv_rn(plane(T.ra, fx, T.rb, fy, T.rc), plane(T.qa, fx, T.qb, fy, T.qc));
   }
   if (!(z > 0.0f && z <= 1.0f)) return false;
-  pix = static_cast<size_t>(py) * width + px;
+  pix = static_cast<size_t>(py - row_off) * width + px;
   if (kZLimit && !(z < zlim[pix])) return false;
   if (kAlpha) {
     const float sv = __fadd_rn(__fadd_rn(d0, d1), d2);
@@ -337,7 +346,8 @@ __device__ __forceinline__ int warp_search(const unsigned long long* __restrict_
 
 template <bool kDepthOnly, bool kAffineZ, bool kZLimit, bool kAlpha>
 __global__ void __launch_bounds__(kRasterThreads, kRasterBlocksPerSM) raster_kernel(
-    const float* __restrict__ recs, int height, int width, const float* __restrict__ zlim,
+    const float* __restrict__ recs, int row_off, int height, int width,
+    const float* __restrict__ zlim,
     const int* __restrict__ alpha, const int* __restrict__ small_ids,
     const int* __restrict__ large_ids, const unsigned long long* __restrict__ offs,
     unsigned long long* counts, unsigned long long* __restrict__ keys,
@@ -382,7 +392,7 @@ __global__ void __launch_bounds__(kRasterThreads, kRasterBlocksPerSM) raster_ker
     const unsigned int alpha_word =
         kAlpha && lane < 8 ? static_cast<unsigned int>(alpha[static_cast<size_t>(t) * 8 + lane]) : 0u;
     Box b;
-    live_box(r4.z, r4.w, r5.x, r5.y, r5.z, height, width, b);  // live by construction
+    live_box(r4.z, r4.w, r5.x, r5.y, r5.z, row_off, height, width, b);  // live by construction
     const int tiles_x = (b.x1 - b.x0 + kTileCols) / kTileCols;
     const int ty = j ? j / tiles_x : 0;
     const int tx = j - ty * tiles_x;
@@ -447,9 +457,9 @@ __global__ void __launch_bounds__(kRasterThreads, kRasterBlocksPerSM) raster_ker
           const int k = i - (row > 0 ? s_end[warp][row - 1] : 0);
           const int rfn = s_fn[warp][row];
           const int px = k < rfn ? s_fx[warp][row] + k : s_bx[warp][row] + (k - rfn);
-          ok[p] = fragment<kDepthOnly, kAffineZ, kZLimit, kAlpha>(T, t, px, ry0 + row, width,
-                                                                 zlim, s_alpha[warp], key[p],
-                                                                 pix[p]);
+          ok[p] = fragment<kDepthOnly, kAffineZ, kZLimit, kAlpha>(T, t, px, ry0 + row, row_off,
+                                                                 width, zlim, s_alpha[warp],
+                                                                 key[p], pix[p]);
         }
       }
       unsigned long long cur[kPerLane];
@@ -491,7 +501,7 @@ __global__ void resolve_kernel(const unsigned long long* __restrict__ keys, int 
 
 struct RasterArgs {
   const float* recs;
-  int height, width;
+  int row_off, height, width;
   const float* zlim;
   const int* alpha;
   const int* small_ids;
@@ -506,7 +516,7 @@ template <bool kDepthOnly, bool kAffineZ>
 void launch_raster(bool has_zlim, bool has_alpha, int blocks, cudaStream_t s, const RasterArgs& a) {
 #define RASTER_LAUNCH(ZL, AL)                                                                  \
   raster_kernel<kDepthOnly, kAffineZ, ZL, AL><<<blocks, kRasterThreads, 0, s>>>(              \
-      a.recs, a.height, a.width, a.zlim, a.alpha, a.small_ids, a.large_ids, a.offs, a.counts, \
+      a.recs, a.row_off, a.height, a.width, a.zlim, a.alpha, a.small_ids, a.large_ids, a.offs, a.counts, \
       a.keys, a.depth_bits)
   if (has_zlim && has_alpha) {
     RASTER_LAUNCH(true, true);
@@ -536,7 +546,8 @@ int sm_count() {
 
 }  // namespace
 
-// Rasterize ``n`` records (n, 24) f32 into a height x width target on ``stream``.
+// Rasterize ``n`` records (n, 24) f32 into a height x width target on ``stream``:
+// rows [row_off, row_off + height) of the frame the records were set up for.
 // zlim (height*width f32) and alpha (n*8 i32) may be null. depth_only writes
 // ``depth`` only; otherwise ``keys`` (height*width u64 scratch) is combined into
 // and resolved into ``depth`` and ``vis``. ``work`` is 5*n i32 of scratch (the
@@ -548,7 +559,7 @@ int sm_count() {
 extern "C" int raster_launch(const float* recs, int n, int height, int width,
                              const float* zlim, const int* alpha, int depth_only,
                              int affine_z, void* keys, float* depth, int* vis, int* work,
-                             void* counts, void* stream) {
+                             void* counts, void* stream, int row_off) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* cnt = static_cast<unsigned long long*>(counts);
   const long long npix = static_cast<long long>(height) * width;
@@ -567,7 +578,7 @@ extern "C" int raster_launch(const float* recs, int n, int height, int width,
   if (threads > 0) {
     const long long blocks = (threads + kPrepThreads - 1) / kPrepThreads;
     prep_kernel<<<static_cast<unsigned int>(blocks), kPrepThreads, 0, s>>>(
-        recs, n, height, width, static_cast<uint4*>(target), clear_vec,
+        recs, n, row_off, height, width, static_cast<uint4*>(target), clear_vec,
         static_cast<unsigned int*>(target) + clear_vec * 4, tail, small_ids, large_ids,
         large_units, cnt);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
@@ -575,7 +586,7 @@ extern "C" int raster_launch(const float* recs, int n, int height, int width,
   if (n > 0) {
     scan_kernel<<<1, kScanThreads, 0, s>>>(large_units, offs, cnt);
     if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
-    const RasterArgs a{recs, height, width, zlim, alpha, small_ids, large_ids, offs, cnt,
+    const RasterArgs a{recs, row_off, height, width, zlim, alpha, small_ids, large_ids, offs, cnt,
                        static_cast<unsigned long long*>(keys), reinterpret_cast<unsigned int*>(depth)};
     const int blocks = sm_count() * kRasterBlocksPerSM;
     const bool hz = zlim != nullptr, ha = alpha != nullptr;

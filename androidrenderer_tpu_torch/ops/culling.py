@@ -10,9 +10,12 @@ below the pyramid's min over its screen AABB. ``occlusion_cull_spheres`` reads
 a footprint that covers the whole AABB, where the JAX package's reads one at
 its centre (see there).
 
-Band rendering (``row_offset``/``full_height``) is multi-device work (ROADMAP.md,
-port queue item 10): the arguments are accepted at their single-device values
-and anything else raises.
+Band rendering (``row_offset``/``full_height``): the pyramid covers rows
+[row_offset, row_offset + band) of the frame; each sphere reads the texels of
+its AABB's rows within the band, and a sphere whose AABB misses the band is
+culled for that band (the sharded frame ORs the bands' visibility,
+parallel/collectives.any_across); one that crosses the near plane stays visible
+in every band.
 """
 
 from __future__ import annotations
@@ -99,8 +102,8 @@ def occlusion_cull_spheres(
     p11,
     hiz_levels: List[torch.Tensor],
     radius_pad: float = 2.0,  # the reference inflates by +2 (hi_z_culling.comp:150)
-    row_offset=0,
-    full_height: int | None = None,
+    row_offset: int = 0,  # band rendering: first frame row covered by hiz_levels[0]
+    full_height: int | None = None,  # the frame's height (defaults to the pyramid's)
 ) -> torch.Tensor:
     """(P,) bool — True = NOT occluded. Spheres crossing the near plane pass.
 
@@ -117,19 +120,15 @@ def occlusion_cull_spheres(
     pixels: on the bench scene and camera at 1024x544, JAX's
     occlusion_cull_spheres culls 4 primitives that the unculled raster shows,
     and two-phase culling then changes the frame (1556 pixels at 1024x544)."""
-    if row_offset != 0 or full_height is not None:
-        raise NotImplementedError(
-            "band rendering (row_offset/full_height) is not ported to "
-            "androidrenderer_tpu_torch yet (ROADMAP.md, port queue item 10)"
-        )
     c = _view_space(bounds, view)
     r = bounds[:, 3] + radius_pad
     aabb, projectable = project_sphere_aabb(c, r, z_near, p00, p11)
 
     h0, w0 = hiz_levels[0].shape
-    # The AABB in pixel units; pixel i spans [i, i + 1).
+    fh = full_height if full_height is not None else h0
+    # The AABB in pixel units (rows relative to the band); pixel i spans [i, i + 1).
     x0, x1 = aabb[:, 0] * w0, aabb[:, 2] * w0
-    y0, y1 = aabb[:, 1] * h0, aabb[:, 3] * h0
+    y0, y1 = aabb[:, 1] * fh - row_offset, aabb[:, 3] * fh - row_offset
 
     def texels(a, b, li, n):
         """First and last texel of [a, b] at level li, of n."""
@@ -172,7 +171,13 @@ def occlusion_cull_spheres(
     sphere_depth = torch.clamp(
         torch.full_like(d, z_near) / torch.clamp(d - r, min=1e-6), 0.0, 1.0
     )
-    return (sphere_depth >= pyramid_min) | ~projectable
+    visible = (sphere_depth >= pyramid_min) | ~projectable
+    if full_height is not None and full_height != h0:
+        # A sphere that crosses the near plane has no meaningful AABB: it stays
+        # visible in every band (JAX's band test drops it where its AABB misses).
+        in_band = ((aabb[:, 3] * fh) >= row_offset) & ((aabb[:, 1] * fh) <= row_offset + h0)
+        visible = visible & (in_band | ~projectable)
+    return visible
 
 
 def primitive_mask_to_triangle_mask(

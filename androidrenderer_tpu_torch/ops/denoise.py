@@ -12,8 +12,9 @@ when present. Here, as there:
   pre-albedo irradiance with a widened neighbourhood clamp, the
   vendor-denoiser replacement.
 
-The band arguments of the JAX functions (``row_offset``, ``signal_halo``) are
-port queue item 10's.
+``temporal_accumulate``'s band arguments (``row_offset``, ``signal_halo``)
+serve a band of a sharded frame, as in ``taa.taa_resolve``. The a-trous
+filter rolls within the band it is given, as the JAX frame runs it per band.
 """
 
 from __future__ import annotations
@@ -68,18 +69,25 @@ def atrous_filter(
 
 def temporal_accumulate(
     signal: torch.Tensor,  # (H, W, 3) this frame's filtered irradiance
-    history: torch.Tensor,  # (H, W, 3) accumulated irradiance
+    history: torch.Tensor,  # (H_full, W, 3) accumulated irradiance (FULL frame)
     history_valid: torch.Tensor,  # () bool
     mv: torch.Tensor,  # (H, W, 2) uv motion (ops/taa.py::motion_vectors)
     blend: float = 0.15,
+    row_offset: int = 0,  # band mode: first frame row of ``signal``
+    signal_halo: torch.Tensor | None = None,  # (H+2, W, 3) for band rendering
 ):
     """(accumulated, new_history): reprojected exponential accumulation with a
-    3x3 neighbourhood clamp (rejects ghosting on disocclusion)."""
+    3x3 neighbourhood clamp (rejects ghosting on disocclusion), with
+    taa_resolve's band contract (full-frame history, optional row halo)."""
     h, w, _ = signal.shape
-    prev_uv = _pixel_uv(h, w, signal.device) - mv
+    prev_uv = _pixel_uv(h, w, signal.device, row_offset, history.shape[0]) - mv
     # R11G11B10-packed fetch (16-byte gather rows; see taa._bilinear_sample_packed).
     hist = _bilinear_sample_packed(history, prev_uv)
-    mn, mx = _neighborhood_minmax(signal)
+    if signal_halo is not None:
+        mn, mx = _neighborhood_minmax(signal_halo)
+        mn, mx = mn[1:-1], mx[1:-1]
+    else:
+        mn, mx = _neighborhood_minmax(signal)
     # Wider clamp box than TAA: irradiance is low-frequency and 1-spp noisy, so a
     # tight clamp would reject the very history that removes the noise.
     pad = 0.5 * (mx - mn) + 1e-4

@@ -68,6 +68,7 @@ def resolve_gbuffer(
     vis: torch.Tensor,  # (H, W) int32
     depth: torch.Tensor,  # (H, W) f32
     mip_bias: float = 0.0,
+    row_offset: int = 0,  # band mode: the first frame row of vis
     attr_planes: torch.Tensor | None = None,
     use_base_textures: bool = True,
     use_normal_maps: bool = True,
@@ -76,8 +77,8 @@ def resolve_gbuffer(
     pixel_coords=None,  # optional ((...,) px f32, (...,) py f32) matching vis' shape
 ) -> GBuffer:
     """Shade the visibility buffer. ``vis`` may be any shape: pixel coordinates
-    come from the (H, W) grid, or from ``pixel_coords`` for strided or scattered
-    shading (VRSAA's coarse quad grid and its fine samples)."""
+    come from the (H, W) grid + ``row_offset``, or from ``pixel_coords`` for
+    strided or scattered shading (VRSAA's coarse quad grid and its fine samples)."""
     valid = vis >= 0
     tid = vis.clamp(min=0).to(torch.int64)
 
@@ -92,7 +93,7 @@ def resolve_gbuffer(
         height, width = vis.shape
         dev = vis.device
         px = torch.arange(width, dtype=torch.float32, device=dev)[None, :, None]
-        py = torch.arange(height, dtype=torch.float32, device=dev)[:, None, None]
+        py = (torch.arange(height, dtype=torch.float32, device=dev) + row_offset)[:, None, None]
     else:
         px = pixel_coords[0].to(torch.float32)[..., None]
         py = pixel_coords[1].to(torch.float32)[..., None]

@@ -51,6 +51,8 @@ def ssao(
     radius: float = 0.5,
     bias: float = 0.02,
     intensity: float = 1.0,
+    row0: int = 0,  # the frame row of input row 0 (a band with its halo rows)
+    full_height: int | None = None,
 ) -> torch.Tensor:
     """(H, W, 1) screen-space AO — the CACAO-slot fallback
     (ambient_occlusion_phase.cpp:191-355).
@@ -58,15 +60,16 @@ def ssao(
     An Alchemy-style estimator over 24 fixed shifted taps (radii 2, 5, 9 px, 8
     directions each) and a depth-aware separable bilateral blur of +-2 px. A tap
     whose source pixel lies outside the frame is masked out, and the estimate
-    renormalizes by the live tap count (no screen-wrap taps). The JAX function's
-    ``row0``/``full_height`` (a band of a taller frame) belong to multi-device
-    band rendering, not ported (ROADMAP.md item 10)."""
+    renormalizes by the live tap count (no screen-wrap taps). A band of a
+    taller frame passes its first row as ``row0`` and the frame's height as
+    ``full_height``: taps are masked by frame rows."""
     wp = gbuffer.world_position
     n = gbuffer.normal
     valid = gbuffer.valid
     h, w = wp.shape[:2]
     dev = wp.device
-    gy = torch.arange(h, dtype=torch.int32, device=dev)[:, None]
+    fh = full_height if full_height is not None else h
+    gy = (torch.arange(h, dtype=torch.int32, device=dev) + row0)[:, None]
     gx = torch.arange(w, dtype=torch.int32, device=dev)[None, :]
     occ = torch.zeros((h, w), dtype=torch.float32, device=dev)
     live = torch.zeros((h, w), dtype=torch.float32, device=dev)
@@ -76,7 +79,7 @@ def ssao(
             q = torch.roll(wp, (dy, dx), dims=(0, 1))
             qv = torch.roll(valid, (dy, dx), dims=(0, 1))
             # De-wrap: the tap's source pixel must be inside the frame.
-            inb = (gy - dy >= 0) & (gy - dy < h) & (gx - dx >= 0) & (gx - dx < w)
+            inb = (gy - dy >= 0) & (gy - dy < fh) & (gx - dx >= 0) & (gx - dx < w)
             qv = qv & inb
             v = q - wp
             d2 = (v * v).sum(dim=-1)
@@ -99,7 +102,7 @@ def ssao(
             a_s = torch.roll(ao, o, dims=axis)
             d_s = torch.roll(depth, o, dims=axis)
             if axis == 0:
-                inb = (gy - o >= 0) & (gy - o < h)
+                inb = (gy - o >= 0) & (gy - o < fh)
             else:
                 inb = ((gx - o >= 0) & (gx - o < w)).expand(h, w)
             rel = torch.abs(d_s - depth) / (torch.abs(depth) + 1e-6)

@@ -6,8 +6,9 @@ the JAX package's ops/noise.py, the spatio-temporal blue-noise stack is loaded
 from this package's copy of the baked asset (assets/stbn_128_64.npz); the
 direction samplers are torch. Not ported (ROADMAP.md): the JAX module's
 white-noise ``pixel_uniforms`` / ``_pcg`` and its void-and-cluster generator
-``blue_noise``, which no port path calls, and ``row_offset`` (band-sharded
-rendering, port queue item 10).
+``blue_noise``, which no port path calls. ``stbn_uniforms``' ``row_offset``
+keeps a band of a sharded frame (parallel/mesh.py) equal to those rows of the
+whole frame's noise.
 """
 
 from __future__ import annotations
@@ -97,8 +98,10 @@ def _stbn_on(device, channels: int) -> torch.Tensor:
     return _STBN_DEVICE_CACHE[key]
 
 
-def stbn_uniforms(height: int, width: int, frame_index: int, num: int, device) -> torch.Tensor:
-    """(H, W, num) blue-noise uniforms in [0, 1].
+def stbn_uniforms(height: int, width: int, frame_index: int, num: int, device,
+                  row_offset: int = 0) -> torch.Tensor:
+    """(H, W, num) blue-noise uniforms in [0, 1], of the frame rows from
+    ``row_offset`` on.
 
     Layer selection is ``frame % 64`` (scene_renderer.cpp:81-83; shaders index
     ``pixel % 128``), picked on the host from the Python frame index; the
@@ -111,6 +114,6 @@ def stbn_uniforms(height: int, width: int, frame_index: int, num: int, device) -
     for k in range(num):
         # Distinct layer per channel (k-offset), same spatial slice.
         lk = (li + k * 17) % STBN_LAYERS
-        layer = stack[k % stack.shape[0], lk]
+        layer = torch.roll(stack[k % stack.shape[0], lk], -(row_offset % s), dims=0)
         outs.append(layer.repeat(reps_y, reps_x)[:height, :width])
     return torch.stack(outs, dim=-1)

@@ -18,8 +18,8 @@ The port of the JAX package's ops/probes.py, single device:
   the next coarser one near its edge.
 
 The ray -> texel convolutions are (texels x rays) products outside any kernel,
-``torch.matmul``/``einsum`` here as the JAX package leaves them to XLA. The
-multi-device branch (``axis_name``) is port queue item 10's.
+``torch.matmul``/``einsum`` here as the JAX package leaves them to XLA. In a
+sharded frame (``update_probes(group=)``) the ranks divide the cascades.
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from androidrenderer_tpu_torch.ops import texture as tex
 from androidrenderer_tpu_torch.ops.octahedral import dir_to_oct_uv, oct_texel_directions
 from androidrenderer_tpu_torch.ops.post import srgb_to_linear
 from androidrenderer_tpu_torch.ops.rt.traverse import DeviceBVH, occlusion, trace_rays
+from androidrenderer_tpu_torch.parallel.collectives import assemble, band_index
 
 IRR_RES = 13  # irradiance octahedral resolution (reference light cache 13x13)
 DEPTH_RES = 12  # depth octahedral resolution (reference 12x12)
@@ -220,57 +221,86 @@ def update_probes(
     use_textures: bool = True,  # sample base/emission textures at hits (LOD 0)
     hysteresis: float = HYSTERESIS,  # traced history blend (irradiance_cache cvar)
     spacing_ladder=None,  # per-cascade spacing multipliers (cascade_spacings)
+    group=None,  # torch.distributed group: divide the cascades across its ranks
 ) -> ProbeCascades:
     """Scroll the cascades, pick each one's stalest probes, trace + convolve +
-    blend. Every cascade's probe rays go through one closest-hit trace and one
-    sun-occlusion trace (C x budget x rays rays each). Returns new tensors; the
-    state passed in is not changed."""
+    blend. The traced cascades' probe rays go through one closest-hit trace and
+    one sun-occlusion trace (budget x rays rays per cascade). Returns new
+    tensors; the state passed in is not changed.
+
+    With ``group`` (a band of a sharded frame) rank d traces only the cascades
+    {i : i % n == d} (probe updates are cascade-independent) and the updated
+    cascades are assembled by one all-reduce in which each cascade has one
+    owner (parallel/collectives.assemble), so every rank ends with the
+    single-device update bit for bit; picks, ages and cells are functions of
+    replicated inputs and stay replicated. JAX sums the owners' deltas
+    (old + (new - old)) instead, which differs from the update by an ulp
+    where the blended value does not round back."""
     dev = camera_position.device
     c = state.irradiance.shape[0]
     b, n_r = budget_per_cascade, rays_per_probe
     plan = probe_rays(state, camera_position, grid, spacing_base, b, n_r, frame_index,
                       spacing_ladder)
-    age, pick, o, d = plan.age, plan.pick, plan.origins, plan.directions
-    dirs = d[:n_r]  # (R, 3): every probe's ray set
-    rows = torch.arange(c, device=dev)[:, None]
-    if masked:
-        from androidrenderer_tpu_torch.ops.rt.effects import trace_rays_masked
-
-        hits = trace_rays_masked(bvh, scene, o, d, 0.01, 1e30)
+    if group is None:
+        owned = list(range(c))
     else:
-        hits = trace_rays(bvh, o, d, 0.01, 1e30)
-    radiance = _shade_hits(scene, bvh, o, d, hits, sun_exposure, masked, use_textures)
-    hit = hits.slot >= 0
-    radiance = radiance.reshape(c * b, n_r, 3)
-    # Per-cascade miss/clamp distance (spacing * 4).
-    dist = torch.minimum(torch.where(hit, hits.t, plan.clamp_d), plan.clamp_d).reshape(c * b, n_r)
-
-    # Convolutions: texel x ray weight products, batched over C*B probes.
-    irr_dirs = oct_texel_directions(IRR_RES, dev).reshape(-1, 3)  # (T, 3)
-    dep_dirs = oct_texel_directions(DEPTH_RES, dev).reshape(-1, 3)
-    cosw = torch.clamp(irr_dirs @ dirs.T, min=0.0)  # (T, R)
-    irr_all = torch.einsum("tr,brk->btk", cosw, radiance) / torch.clamp(
-        cosw.sum(1)[None, :, None], min=1e-6)  # (C*B, T, 3)
-    dw = torch.clamp(dep_dirs @ dirs.T, min=0.0) ** DEPTH_SHARPNESS  # (Td, R)
-    wsum = torch.clamp(dw.sum(1), min=1e-6)
-    dmean = (dist @ dw.T) / wsum[None, :]  # (C*B, Td)
-    dmean2 = ((dist * dist) @ dw.T) / wsum[None, :]
-    dep_all = torch.stack([dmean, dmean2], dim=-1)  # (C*B, Td, 2)
-
-    # Hysteresis blend; fresh (moved/invalid) probes take the new value. The
-    # weights are the float32 ones of the reference's float32 parameter.
-    keep = np.float32(hysteresis)
-    take = float(np.float32(1.0) - keep)
-    keep = float(keep)
-    fresh = (age[rows, pick] > 5_000)[..., None, None]  # (C, B, 1, 1)
-    irr_b = irr_all.reshape(c, b, *irr_all.shape[1:])
-    dep_b = dep_all.reshape(c, b, *dep_all.shape[1:])
-    old_irr, old_dep = state.irradiance[rows, pick], state.depth[rows, pick]
+        rank, n = band_index(group)
+        owned = list(range(rank, c, n))
+    age, pick = plan.age, plan.pick
     new_irr, new_dep = state.irradiance.clone(), state.depth.clone()
-    new_irr[rows, pick] = torch.where(fresh, irr_b, old_irr * keep + irr_b * take)
-    new_dep[rows, pick] = torch.where(fresh, dep_b, old_dep * keep + dep_b * take)
+    if owned:
+        per = b * n_r  # rays per cascade
+
+        def rays(x):  # the owned cascades' rows of a (C*B*R, ...) ray tensor
+            if len(owned) == c:
+                return x
+            return torch.cat([x[ci * per:(ci + 1) * per] for ci in owned])
+
+        o, d = rays(plan.origins), rays(plan.directions)
+        if masked:
+            from androidrenderer_tpu_torch.ops.rt.effects import trace_rays_masked
+
+            hits = trace_rays_masked(bvh, scene, o, d, 0.01, 1e30)
+        else:
+            hits = trace_rays(bvh, o, d, 0.01, 1e30)
+        radiance = _shade_hits(scene, bvh, o, d, hits, sun_exposure, masked, use_textures)
+        clamp_d = rays(plan.clamp_d)
+        # Per-cascade miss/clamp distance (spacing * 4).
+        dist = torch.minimum(torch.where(hits.slot >= 0, hits.t, clamp_d), clamp_d)
+        dirs = plan.directions[:n_r]  # (R, 3): every probe's ray set
+        irr_dirs = oct_texel_directions(IRR_RES, dev).reshape(-1, 3)  # (T, 3)
+        dep_dirs = oct_texel_directions(DEPTH_RES, dev).reshape(-1, 3)
+        cosw = torch.clamp(irr_dirs @ dirs.T, min=0.0)  # (T, R)
+        cos_sum = torch.clamp(cosw.sum(1)[None, :, None], min=1e-6)
+        dw = torch.clamp(dep_dirs @ dirs.T, min=0.0) ** DEPTH_SHARPNESS  # (Td, R)
+        wsum = torch.clamp(dw.sum(1), min=1e-6)
+        # Hysteresis blend; fresh (moved/invalid) probes take the new value. The
+        # weights are the float32 ones of the reference's float32 parameter.
+        keep = np.float32(hysteresis)
+        take = float(np.float32(1.0) - keep)
+        keep = float(keep)
+        for j, ci in enumerate(owned):
+            # Convolutions: texel x ray weight products over the cascade's B
+            # probes, one cascade at a time (the same shapes on every rank).
+            rad = radiance[j * per:(j + 1) * per].reshape(b, n_r, 3)
+            dis = dist[j * per:(j + 1) * per].reshape(b, n_r)
+            irr_b = torch.einsum("tr,brk->btk", cosw, rad) / cos_sum  # (B, T, 3)
+            dep_b = torch.stack([(dis @ dw.T) / wsum[None, :],
+                                 ((dis * dis) @ dw.T) / wsum[None, :]], dim=-1)  # (B, Td, 2)
+            pk = pick[ci]
+            fresh = (age[ci, pk] > 5_000)[:, None, None]
+            old_irr, old_dep = state.irradiance[ci, pk], state.depth[ci, pk]
+            new_irr[ci, pk] = torch.where(fresh, irr_b, old_irr * keep + irr_b * take)
+            new_dep[ci, pk] = torch.where(fresh, dep_b, old_dep * keep + dep_b * take)
+    if group is not None:
+        def mine(x):  # the owned cascades, zeros elsewhere
+            out = torch.zeros_like(x)
+            out[owned] = x[owned]
+            return out
+
+        new_irr, new_dep = assemble(mine(new_irr), group), assemble(mine(new_dep), group)
     new_age = age.clone()
-    new_age[rows, pick] = 0
+    new_age[torch.arange(c, device=dev)[:, None], pick] = 0
     return ProbeCascades(irradiance=new_irr, depth=new_dep, cell=plan.desired, age=new_age)
 
 

@@ -12,7 +12,8 @@ the bitmap path tests a per-triangle 16x16 lattice inside the raster instead.
 Each peel layer is one call of ``rasterize_binned`` with ``z_limit`` (the CUDA
 kernel on the card, its plain version on the CPU). The JAX package's off-TPU
 branch (``bin_triangles`` + the XLA raster) is its own fallback and is not ported
-(ROADMAP.md, port queue item 5), nor is band rendering (``row_offset``, item 10).
+(ROADMAP.md, port queue item 5). ``row_offset`` peels a band of a sharded frame
+(rows [row_offset, row_offset + H) of it), as the band raster does.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ def pack_alpha_planes(scene: SceneArrays, setup: TriangleSetup) -> torch.Tensor:
 
 
 def _sample_alpha(
-    scene: SceneArrays, setup: TriangleSetup, vis: torch.Tensor,
+    scene: SceneArrays, setup: TriangleSetup, vis: torch.Tensor, row_offset: int = 0,
     alpha_planes: torch.Tensor | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(alpha, cutoff) (H, W) each: base-color alpha x factor at the winning
@@ -94,7 +95,7 @@ def _sample_alpha(
     row = alpha_planes[tid]  # (H, W, 13) — the one gather
     h, w = vis.shape
     px = torch.arange(w, dtype=torch.float32, device=vis.device)[None, :]
-    py = torch.arange(h, dtype=torch.float32, device=vis.device)[:, None]
+    py = torch.arange(h, dtype=torch.float32, device=vis.device)[:, None] + row_offset
     fu = row[..., 0] * px + row[..., 1] * py + row[..., 2]
     fv = row[..., 3] * px + row[..., 4] * py + row[..., 5]
     sv = row[..., 6] * px + row[..., 7] * py + row[..., 8]
@@ -117,6 +118,7 @@ def rasterize_masked_peeled(
     base_depth: torch.Tensor,  # (H, W) opaque depth
     base_vis: torch.Tensor,  # (H, W) opaque visibility
     layers: int = 3,
+    row_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(depth, vis) of the opaque buffers merged with the alpha-tested masked
     geometry: ``layers`` peel layers, each keeping the first alpha-passing
@@ -131,10 +133,11 @@ def rasterize_masked_peeled(
     settled = torch.zeros((height, width), dtype=torch.bool, device=base_depth.device)
     for layer in range(layers):
         d, v = rasterize_binned(
-            setup_masked, height, width, z_limit=None if layer == 0 else z_limit
+            setup_masked, height, width, z_limit=None if layer == 0 else z_limit,
+            row_offset=row_offset,
         )
         covered = v >= 0
-        alpha, cutoff = _sample_alpha(scene, setup_masked, v, alpha_planes=aplanes)
+        alpha, cutoff = _sample_alpha(scene, setup_masked, v, row_offset, alpha_planes=aplanes)
         passes = covered & (alpha >= cutoff)
         take = passes & ~settled
         out_depth = torch.where(take, d, out_depth)

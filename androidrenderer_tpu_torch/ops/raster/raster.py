@@ -22,6 +22,11 @@ or all >= 0 for double-sided records), z = r/q (or the affine plane), accepted
 when 0 < z <= 1 (and z < z_limit), optionally alpha-tested against the
 triangle's 16x16 barycentric bitmap. Reversed-Z: the greatest z wins a pixel,
 ties going to the higher triangle id. Depth clears to 0 and vis to -1.
+
+Band mode (``row_offset``): the target is rows [row_offset, row_offset +
+height) of a taller frame. Setups stay in full-frame pixel space, pixel (x, y)
+of the target is evaluated at (x, row_offset + y), and each bbox clips to the
+band, so a band equals those rows of the full raster bit for bit.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ _PATCH_BUDGET = 1 << 22
 
 _vp, _ci = c_void_p, c_int
 LIBRARY = Library("raster.cu", {
-    "raster_launch": [_vp, _ci, _ci, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp],
+    "raster_launch": [_vp, _ci, _ci, _ci, _vp, _vp, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _ci],
 })
 
 # The kernel's work counters (csrc/raster.cu, ``counts``), in order.
@@ -74,14 +79,17 @@ def rasterize(
     affine_z: bool = False,
     z_limit: torch.Tensor | None = None,
     alpha_grid: torch.Tensor | None = None,
+    row_offset: int = 0,
 ):
-    """(depth (H, W) f32, vis (H, W) i32), or depth alone with ``depth_only``.
+    """(depth (H, W) f32, vis (H, W) i32), or depth alone with ``depth_only``:
+    rows [row_offset, row_offset + height) of the frame ``setup`` was made for.
 
     A CUDA setup launches the kernel (counted in ``rasterize.launches``); a CPU
     setup runs ``rasterize_reference``; any other device raises."""
     records = pack_fused_records(setup, affine_z=affine_z)
     return raster_records(
-        records, height, width, depth_only, affine_z, z_limit, alpha_grid, counter=rasterize
+        records, height, width, depth_only, affine_z, z_limit, alpha_grid, counter=rasterize,
+        row_offset=row_offset,
     )
 
 
@@ -89,7 +97,7 @@ rasterize.launches = 0
 
 
 def raster_records(records, height, width, depth_only, affine_z, z_limit, alpha_grid,
-                   counter):
+                   counter, row_offset: int = 0):
     """Rasterize packed records on their own device: the kernel for CUDA tensors
     (adding one to ``counter.launches``, the calling entry point's count), the
     plain version for CPU tensors; any other device raises. Every entry point of
@@ -97,9 +105,11 @@ def raster_records(records, height, width, depth_only, affine_z, z_limit, alpha_
     rasterize_hybrid, rasterize_pallas) ends here."""
     if records.device.type == "cpu":
         return _reference_from_records(
-            records, height, width, depth_only, affine_z, z_limit, alpha_grid
+            records, height, width, depth_only, affine_z, z_limit, alpha_grid,
+            row_offset=row_offset,
         )
-    call = prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_grid)
+    call = prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_grid,
+                          row_offset=row_offset)
     call.launch()
     counter.launches += 1
     return call.outputs
@@ -116,7 +126,7 @@ class RasterCall(NamedTuple):
 
 
 def prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_grid,
-                   library=LIBRARY):
+                   library=LIBRARY, row_offset: int = 0):
     """Check the inputs of a kernel call and allocate its outputs and scratch
     (``torch.empty``: the kernel allocates nothing). Launches nothing and counts
     nothing; ``raster_records`` launches once and counts it. ``library``: a
@@ -124,6 +134,8 @@ def prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_
     if records.device.type != "cuda":
         raise ValueError(f"the rasterizer runs on cuda or cpu tensors, got {records.device}")
     n = records.shape[0]
+    if not 0 <= row_offset < 2**31 - height:
+        raise ValueError(f"row_offset {row_offset} is outside the kernel's int32 rows")
     if n >= 2**31 or height * width >= 2**31:
         raise ValueError(f"{n} triangles into {height}x{width} exceeds the kernel's int32 indexing")
     dev = records.device
@@ -157,7 +169,7 @@ def prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_
             err = lib.raster_launch(
                 records.data_ptr(), n, height, width, ptr(z_limit), ptr(alpha_grid),
                 int(depth_only), int(affine_z), ptr(keys), depth.data_ptr(), ptr(vis),
-                work.data_ptr(), counts.data_ptr(), stream,
+                work.data_ptr(), counts.data_ptr(), stream, int(row_offset),
             )
         if err != 0:
             raise RuntimeError(f"raster_launch failed with cudaError_t {err}")
@@ -183,28 +195,33 @@ def rasterize_reference(
     affine_z: bool = False,
     z_limit: torch.Tensor | None = None,
     alpha_grid: torch.Tensor | None = None,
+    row_offset: int = 0,
 ):
     """The plain PyTorch rasterizer, on any device: the kernel's contract with
     the kernel's rounding (each product and sum rounded on its own, IEEE
-    division), so the two agree bit for bit."""
+    division), so the two agree bit for bit; rows [row_offset, row_offset +
+    height) of the frame ``setup`` was made for."""
     records = pack_fused_records(setup, affine_z=affine_z)
     return _reference_from_records(
-        records, height, width, depth_only, affine_z, z_limit, alpha_grid
+        records, height, width, depth_only, affine_z, z_limit, alpha_grid,
+        row_offset=row_offset,
     )
 
 
 def _reference_from_records(rec, height, width, depth_only, affine_z, z_limit, alpha_grid,
-                            fragments=None):
+                            fragments=None, row_offset: int = 0):
     """Evaluate each live triangle on its clipped bbox, in patches grouped by
     bbox size class (next power of two per axis), and combine the fragments with
     ``scatter_reduce_("amax")`` on the int64 key (bits(z) << 32 | id) — exact and
     independent of order, like the kernel's atomicMax. ``fragments`` replaces
     the bbox walk (``patch_fragments``) with another that yields (triangle ids,
-    Fragments) with one id per leading index of the fragments."""
+    Fragments) with one id per leading index of the fragments; both take
+    ``row_offset``."""
     npix = height * width
     keys = torch.zeros(npix + 1, dtype=torch.int64, device=rec.device)  # last = discard slot
     zl = None if z_limit is None else z_limit.reshape(-1)
-    for tri, frag in (fragments or patch_fragments)(rec, height, width, affine_z):
+    for tri, frag in (fragments or patch_fragments)(rec, height, width, affine_z,
+                                                    row_offset=row_offset):
         cov = frag.covered & (frag.z > 0.0) & (frag.z <= 1.0)
         if zl is not None:
             cov = cov & (frag.z < zl[frag.pix])
@@ -232,7 +249,7 @@ def _reference_from_records(rec, height, width, depth_only, affine_z, z_limit, a
 class Fragments(NamedTuple):
     """A batch of triangles evaluated on (B, ph, pw) patches at their bbox corners."""
 
-    pix: torch.Tensor  # i64 pixel index (clamped into the target)
+    pix: torch.Tensor  # i64 target pixel index (clamped into the target)
     covered: torch.Tensor  # inside the clipped bbox and all three edge tests passed
     z: torch.Tensor  # f32
     d0: torch.Tensor  # f32 edge functions
@@ -240,23 +257,24 @@ class Fragments(NamedTuple):
     d2: torch.Tensor
 
 
-def record_bboxes(rec, height, width):
-    """(x0, y0, x1, y1, live) of each record's bbox clipped to the target, as
-    the kernel computes them; live = sid != 0 and a non-empty clipped bbox."""
+def record_bboxes(rec, height, width, row_offset: int = 0):
+    """(x0, y0, x1, y1, live) of each record's bbox clipped to the target (rows
+    [row_offset, row_offset + height) of the frame, in frame rows), as the
+    kernel computes them; live = sid != 0 and a non-empty clipped bbox."""
     bx0 = torch.floor(rec[:, 19]).clamp(min=0).to(torch.int64)
-    by0 = torch.floor(rec[:, 20]).clamp(min=0).to(torch.int64)
+    by0 = torch.floor(rec[:, 20]).clamp(min=row_offset).to(torch.int64)
     bx1 = torch.ceil(rec[:, 21]).clamp(max=width - 1).to(torch.int64)
-    by1 = torch.ceil(rec[:, 22]).clamp(max=height - 1).to(torch.int64)
+    by1 = torch.ceil(rec[:, 22]).clamp(max=row_offset + height - 1).to(torch.int64)
     live = (rec[:, 18] != 0.0) & (bx1 >= bx0) & (by1 >= by0)
     return bx0, by0, bx1, by1, live
 
 
-def patch_fragments(rec, height, width, affine_z):
+def patch_fragments(rec, height, width, affine_z, row_offset: int = 0):
     """Yield (triangle ids, Fragments) over every live record, in batches of one
     bbox size class and at most ``_PATCH_BUDGET`` patch pixels, with the kernel's
     rounding (each product and sum rounded on its own, IEEE division)."""
     dev = rec.device
-    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width)
+    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width, row_offset)
     ids = torch.nonzero(live).flatten()
     if not ids.numel():
         return
@@ -274,12 +292,13 @@ def patch_fragments(rec, height, width, affine_z):
             py = by0[tri, None, None] + torch.arange(ph, device=dev)[None, :, None]
             inside = (px <= bx1[tri, None, None]) & (py <= by1[tri, None, None])
             yield tri, _evaluate(lambda k: r[:, k, None, None], px, py, inside, height, width,
-                                 affine_z)
+                                 affine_z, row_offset)
 
 
-def _evaluate(col, px, py, inside, height, width, affine_z) -> Fragments:
-    """The contract's edge tests and z at integer pixels (px, py), with the
-    kernel's rounding; ``col(k)`` is record slot k broadcast against them."""
+def _evaluate(col, px, py, inside, height, width, affine_z, row_offset) -> Fragments:
+    """The contract's edge tests and z at integer pixels (px, py) of the frame,
+    with the kernel's rounding; ``col(k)`` is record slot k broadcast against
+    them. Frame row py is target row py - row_offset."""
     fx = px.to(torch.float32)
     fy = py.to(torch.float32)
     d0 = col(0) * fx + col(1) * fy + col(2)
@@ -291,17 +310,17 @@ def _evaluate(col, px, py, inside, height, width, affine_z) -> Fragments:
         z = col(12) * fx + col(13) * fy + col(14)
     else:
         z = (col(15) * fx + col(16) * fy + col(17)) / (col(12) * fx + col(13) * fy + col(14))
-    pix = (py * width + px).clamp(max=height * width - 1)
+    pix = ((py - row_offset) * width + px).clamp(max=height * width - 1)
     return Fragments(pix, inside & (front | back), z, d0, d1, d2)
 
 
-def work_units(rec, height, width):
+def work_units(rec, height, width, row_offset: int = 0):
     """The kernel's work split (csrc/raster.cu, prep and scan): (record id,
     x0, y0, x1, y1) of every work unit — a live record's clipped bbox when it
     fits one TILE_ROWS x TILE_COLS tile, else each such tile of it, from its
     bbox's corner — and the counts the kernel keeps of them."""
     dev = rec.device
-    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width)
+    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width, row_offset)
     ids = torch.nonzero(live).flatten()
     bw, bh = (bx1 - bx0 + 1)[ids], (by1 - by0 + 1)[ids]
     nx = (bw + TILE_COLS - 1) // TILE_COLS
@@ -377,11 +396,11 @@ def _unit_rows(rec, units):
     return (t, y, *row_spans(rec, t, x0, x1, y))
 
 
-def span_fragments(rec, height, width, affine_z, batch_units=1 << 14):
+def span_fragments(rec, height, width, affine_z, batch_units=1 << 14, row_offset: int = 0):
     """Yield (triangle id per fragment, flat Fragments) over the pixels of the
     kernel's row spans only, unit by unit in batches: the plain mirror of
     csrc/raster.cu's walk. Used by the tests, not by the frame."""
-    units, _ = work_units(rec, height, width)
+    units, _ = work_units(rec, height, width, row_offset)
     dev = rec.device
     for s in range(0, units[0].numel(), batch_units):
         t, y, fx, fn, bx, bn = _unit_rows(rec, tuple(u[s:s + batch_units] for u in units))
@@ -392,13 +411,13 @@ def span_fragments(rec, height, width, affine_z, batch_units=1 << 14):
         tri = t[row]
         r = rec[tri]
         yield tri, _evaluate(lambda c: r[:, c], px, y[row], torch.ones_like(px, dtype=torch.bool),
-                             height, width, affine_z)
+                             height, width, affine_z, row_offset)
 
 
-def span_work(rec, height, width) -> dict:
+def span_work(rec, height, width, row_offset: int = 0) -> dict:
     """The kernel's work counts (``work_counts``' names) for these records,
     from the mirror's split and spans."""
-    units, counts = work_units(rec, height, width)
+    units, counts = work_units(rec, height, width, row_offset)
     _, _, _, fn, _, bn = _unit_rows(rec, units)
     counts["evaluated"] = int((fn + bn).sum())
     counts["live"] = counts["small"] + counts["large"]
@@ -414,6 +433,7 @@ def rasterize_spans(
     affine_z: bool = False,
     z_limit: torch.Tensor | None = None,
     alpha_grid: torch.Tensor | None = None,
+    row_offset: int = 0,
 ):
     """``rasterize_reference`` evaluated on the kernel's margin-widened row
     spans instead of every bbox pixel: the plain mirror of csrc/raster.cu's
@@ -422,7 +442,7 @@ def rasterize_spans(
     records = pack_fused_records(setup, affine_z=affine_z)
     return _reference_from_records(
         records, height, width, depth_only, affine_z, z_limit, alpha_grid,
-        fragments=span_fragments,
+        fragments=span_fragments, row_offset=row_offset,
     )
 
 

@@ -37,6 +37,7 @@ def rasterize_binned(
     debug_mode: int = 0,
     z_limit: torch.Tensor | None = None,  # (H, W) reversed-Z upper bound (peel)
     alpha_grid: torch.Tensor | None = None,  # (N, 8) i32 barycentric alpha bitmaps
+    row_offset: int = 0,  # band mode: the target's first frame row (ops/raster/raster.py)
 ):
     """(depth (H, W) f32, vis (H, W) i32), or depth alone with ``depth_only``.
 
@@ -58,7 +59,7 @@ def rasterize_binned(
     records = pack_fused_records(setup, affine_z=affine_z)
     return raster_records(
         records, height, width, depth_only, affine_z, z_limit, alpha_grid,
-        counter=rasterize_binned,
+        counter=rasterize_binned, row_offset=row_offset,
     )
 
 

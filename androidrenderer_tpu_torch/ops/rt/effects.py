@@ -22,7 +22,8 @@ IgnoreHit loop).
 Sampling uses the spatio-temporal blue-noise stack frame-indexed like the
 reference's STBN textures (ops/noise.py). Like the JAX functions, shadows and
 AO trace every pixel's rays, sky pixels included, and mask the result by
-``valid`` afterwards. The band argument ``row_offset`` is port queue item 10's.
+``valid`` afterwards. ``row_offset`` (a band of a sharded frame) offsets the
+blue noise, so a band traces the rays of those rows of the whole frame.
 """
 
 from __future__ import annotations
@@ -173,21 +174,24 @@ def occlusion_masked(bvh, scene, origins, directions, tmin, tmax, peels: int = A
     return occ
 
 
-def sun_shadow_rays(world_position, normal, sun_direction, sun_tan_size, frame_index: int):
+def sun_shadow_rays(world_position, normal, sun_direction, sun_tan_size, frame_index: int,
+                    row_offset: int = 0):
     """(origins (H*W, 3), directions (H*W, 3)) of the RT sun shadows: one ray per
     pixel toward the sun, jittered within the solar disc by the frame's blue
     noise, from the surface offset 2 cm along its normal."""
     h, w, _ = world_position.shape
     to_sun = -sun_direction / torch.sqrt((sun_direction * sun_direction).sum())
-    u = noise.stbn_uniforms(h, w, frame_index, 2, world_position.device)
+    u = noise.stbn_uniforms(h, w, frame_index, 2, world_position.device, row_offset)
     d = noise.disc_jitter(to_sun.expand(h, w, 3), sun_tan_size, u[..., 0], u[..., 1])
     return _flat(world_position + normal * 0.02), _flat(d)
 
 
-def rtao_directions(normal, frame_index: int, num_samples: int, sample: int):
+def rtao_directions(normal, frame_index: int, num_samples: int, sample: int,
+                    row_offset: int = 0):
     """(H*W, 3) cosine-weighted directions of RTAO sample ``sample``."""
     h, w, _ = normal.shape
-    u = noise.stbn_uniforms(h, w, frame_index * num_samples + sample, 2, normal.device)
+    u = noise.stbn_uniforms(h, w, frame_index * num_samples + sample, 2, normal.device,
+                            row_offset)
     return _flat(noise.cosine_hemisphere(normal, u[..., 0], u[..., 1]))
 
 
@@ -201,10 +205,12 @@ def rt_sun_shadows(
     frame_index: int,
     scene=None,  # SceneArrays, passed on to occlusion_masked as the JAX function does
     masked: bool = False,  # alpha-tested geometry in the BVH (any-hit variant)
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """(H, W, 1) shadow factor: 0 occluded, 1 lit."""
     h, w, _ = world_position.shape
-    o, d = sun_shadow_rays(world_position, normal, sun_direction, sun_tan_size, frame_index)
+    o, d = sun_shadow_rays(world_position, normal, sun_direction, sun_tan_size, frame_index,
+                           row_offset)
     if masked:
         occ = occlusion_masked(bvh, scene, o, d, RAY_EPS, 1e30)
     else:
@@ -223,13 +229,14 @@ def rtao(
     frame_index: int,
     scene=None,  # passed on to occlusion_masked, as in rt_sun_shadows
     masked: bool = False,
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """(H, W, 1) ambient visibility in [0, 1] (rtao.comp.slang)."""
     h, w, _ = world_position.shape
     o = _flat(world_position + normal * 0.02)
     vis = torch.zeros(h * w, dtype=torch.float32, device=world_position.device)
     for s in range(num_samples):
-        d = rtao_directions(normal, frame_index, num_samples, s)
+        d = rtao_directions(normal, frame_index, num_samples, s, row_offset)
         if masked:
             occ = occlusion_masked(bvh, scene, o, d, RAY_EPS, max_distance)
         else:
@@ -239,12 +246,12 @@ def rtao(
     return torch.where(valid, ao, 1.0)[..., None]
 
 
-def gi_rays(world_position, normal, frame_index: int):
+def gi_rays(world_position, normal, frame_index: int, row_offset: int = 0):
     """(origins (H*W, 3), directions (H*W, 3)) of RTGI's first bounce: one
     cosine-weighted ray per pixel from the frame's blue noise, from the surface
     offset 2 cm along its normal."""
     h, w, _ = world_position.shape
-    u = noise.stbn_uniforms(h, w, frame_index, 2, world_position.device)
+    u = noise.stbn_uniforms(h, w, frame_index, 2, world_position.device, row_offset)
     d = _flat(noise.cosine_hemisphere(normal, u[..., 0], u[..., 1]))
     return _flat(world_position + normal * 0.02), d
 
@@ -300,6 +307,7 @@ def rtgi(
     num_bounces: int = 1,
     masked: bool = False,  # honour alpha-masked geometry (the bitmap traces)
     use_textures: bool = True,  # sample base/data/emission textures at the hit
+    row_offset: int = 0,
 ) -> torch.Tensor:
     """(H, W, 3) diffuse GI irradiance (x albedo happens in lighting).
 
@@ -313,7 +321,7 @@ def rtgi(
     dev = world_position.device
     sun = scene.sun_direction
     to_sun = -sun / torch.sqrt((sun * sun).sum())
-    o, d = gi_rays(world_position, normal, frame_index)
+    o, d = gi_rays(world_position, normal, frame_index, row_offset)
     n_rays = h * w
     radiance = torch.zeros((n_rays, 3), dtype=torch.float32, device=dev)
     throughput = torch.ones((n_rays, 3), dtype=torch.float32, device=dev)
@@ -347,7 +355,7 @@ def rtgi(
         alive = hit & front
         if b + 1 < num_bounces:
             throughput = throughput * albedo
-            ub = noise.stbn_uniforms(h, w, frame_index + (b + 1) * 7919, 2, dev)
+            ub = noise.stbn_uniforms(h, w, frame_index + (b + 1) * 7919, 2, dev, row_offset)
             d = _flat(noise.cosine_hemisphere(hn.reshape(h, w, 3), ub[..., 0], ub[..., 1]))
             o = hp + hn * 0.02
     # The float32 quotient, as the reference's parameters are float32 scalars.

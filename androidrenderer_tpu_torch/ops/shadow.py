@@ -10,7 +10,10 @@ The port of the JAX package's ops/shadow.py for the raster-only frame:
 - staggered updates: cascade 0 every frame plus ``update_budget`` far cascades
   round-robin against the packed-PCF cache in TemporalState; the round-robin
   index is a host integer;
-- packed u16 2x2 PCF taps and the slope-scaled + normal-offset sampling.
+- packed u16 2x2 PCF taps and the slope-scaled + normal-offset sampling;
+- in a sharded frame, the cascade rasters divided across a process group's ranks
+  and assembled exactly (``render_shadow_cascades_sharded``, and the staggered
+  update's ``group``).
 
 Far cascades (>= ``proxy_from_cascade``) rasterize the vertex-clustered proxy.
 Beyond the last cascade the result is lit (1.0), the JAX package's documented
@@ -30,6 +33,7 @@ from androidrenderer_tpu_torch.ops.raster import (
     triangle_setup,
     triangle_setup_corners,
 )
+from androidrenderer_tpu_torch.parallel.collectives import assemble, band_index
 
 
 class CascadeData(NamedTuple):
@@ -265,6 +269,43 @@ def render_shadow_cascades(
     return torch.stack(maps)
 
 
+def render_shadow_cascades_sharded(
+    positions: torch.Tensor,
+    tri_indices: torch.Tensor,
+    tri_valid: torch.Tensor,
+    cascades: CascadeData,
+    resolution: int,
+    group,  # torch.distributed process group of the frame's bands
+    double_sided: torch.Tensor | None = None,
+    proxy=None,
+    proxy_from_cascade: int = 10**9,
+    corners: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """(C, R, R) cascade maps with the per-cascade rasters DIVIDED across the
+    ranks of ``group``: rank d rasterizes cascades {i : i % n == d} into a zero
+    stack and one all-reduce assembles the set (each map has one owner, so the
+    result is the single-device stack bit for bit; the JAX package's version
+    derives each cascade inside a lax.cond and differs by coefficient ulps).
+    With n >= C each rank runs one cascade raster instead of C."""
+    if double_sided is None:
+        double_sided = torch.ones(tri_indices.shape[0], dtype=torch.bool, device=tri_valid.device)
+    num_cascades = int(cascades.matrices.shape[0])
+    k_proxy = min(max(int(proxy_from_cascade), 0), num_cascades)
+    use_proxy = proxy is not None and k_proxy < num_cascades
+    mc = cascades.canonical
+    setup_c, setup_p = _canonical_setups(
+        positions, tri_indices, tri_valid, mc, resolution, double_sided, proxy,
+        use_proxy, corners,
+    )
+    rank, n = band_index(group)
+    maps = torch.zeros((num_cascades, resolution, resolution), dtype=torch.float32,
+                       device=tri_valid.device)
+    for i in range(rank, num_cascades, n):
+        src = setup_p if (use_proxy and i >= k_proxy) else setup_c
+        maps[i] = _raster_cascade(src, mc, cascades.matrices[i], resolution)
+    return assemble(maps, group)
+
+
 def render_shadow_cascades_staggered(
     positions: torch.Tensor,
     tri_indices: torch.Tensor,
@@ -279,13 +320,18 @@ def render_shadow_cascades_staggered(
     proxy=None,
     proxy_from_cascade: int = 10**9,
     corners: torch.Tensor | None = None,
+    group=None,  # torch.distributed group: divide this frame's rasters across its ranks
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Budgeted cascade updates: cascade 0 every frame plus ``update_budget``
     far cascades round-robin; the rest keep their cached packed maps and the
     matrices they were rastered with. Returns the effective (packed atlas
     (C, R, R, 2) i32, matrices (C, 4, 4)) as new tensors; the cache passed in
     is not modified. A static scene and sun reach the rebuild-all maps exactly
-    after ceil((C-1)/budget) frames."""
+    after ceil((C-1)/budget) frames.
+
+    With ``group`` the frame's updates are divided across its ranks as in
+    ``render_shadow_cascades_sharded`` (update j on rank j % n) and assembled
+    by one all-reduce, so every rank ends with the single-device atlas."""
     if double_sided is None:
         double_sided = torch.ones(tri_indices.shape[0], dtype=torch.bool, device=tri_valid.device)
     num_cascades = int(cascades.matrices.shape[0])
@@ -299,19 +345,30 @@ def render_shadow_cascades_staggered(
     new_packed = cached_packed.clone()
     new_matrices = cached_matrices.clone()
 
-    # Cascade 0 (nearest; the most camera-sensitive) re-rasters every frame.
-    m0 = cascades.matrices[0]
-    new_packed[0] = pack_pcf_taps(_raster_cascade(setup_c, mc, m0, resolution))
-    new_matrices[0] = m0
-
+    # Cascade 0 (nearest; the most camera-sensitive) re-rasters every frame,
+    # then ``update_budget`` far cascades round-robin.
     n_far = num_cascades - 1
     b = min(max(int(update_budget), 1), n_far)
-    for j in range(b):
-        k = 1 + (int(frame_index) * b + j) % n_far
-        mi = cascades.matrices[k]
+    updates = [0] + [1 + (int(frame_index) * b + j) % n_far for j in range(b)]
+
+    def packed(k):
         src = setup_p if (use_proxy and k >= k_proxy) else setup_c
-        new_packed[k] = pack_pcf_taps(_raster_cascade(src, mc, mi, resolution))
-        new_matrices[k] = mi
+        return pack_pcf_taps(_raster_cascade(src, mc, cascades.matrices[k], resolution))
+
+    if group is None:
+        for k in updates:
+            new_packed[k] = packed(k)
+    else:
+        rank, n = band_index(group)
+        tiles = torch.zeros((len(updates), *new_packed.shape[1:]), dtype=new_packed.dtype,
+                            device=new_packed.device)
+        for j in range(rank, len(updates), n):
+            tiles[j] = packed(updates[j])
+        tiles = assemble(tiles, group)
+        for j, k in enumerate(updates):
+            new_packed[k] = tiles[j]
+    for k in updates:
+        new_matrices[k] = cascades.matrices[k]
     return new_packed, new_matrices
 
 

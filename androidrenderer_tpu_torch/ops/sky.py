@@ -267,11 +267,16 @@ def view_ray_directions(
     p11,
     height: int,
     width: int,
+    row_offset: int = 0,
+    full_height: int | None = None,
 ) -> torch.Tensor:
-    """(H, W, 3) world-space unit rays through pixel centers."""
+    """(H, W, 3) world-space unit rays through pixel centers. ``height`` is the
+    band's height, ``row_offset`` its first row and ``full_height`` the whole
+    frame's (defaults to height)."""
     dev = inverse_view.device
+    fh = full_height or height
     px = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) / width * 2.0 - 1.0
-    py = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + 0.5) / height * 2.0
+    py = 1.0 - (torch.arange(height, dtype=torch.float32, device=dev) + row_offset + 0.5) / fh * 2.0
     x = px[None, :] / p00
     y = py[:, None] / p11
     d_view = torch.stack(
@@ -292,9 +297,11 @@ def sky_background(
     height: int,
     width: int,
     exposure: float = 0.00031415927,
+    row_offset: int = 0,
+    full_height: int | None = None,
 ) -> torch.Tensor:
     """(H, W, 3) HDR sky for the background pass, pre-scaled to lit-scene units."""
-    dirs = view_ray_directions(inverse_view, p00, p11, height, width)
+    dirs = view_ray_directions(inverse_view, p00, p11, height, width, row_offset, full_height)
     lum = sky_radiance(dirs, sun_direction)
     return lum * sun_color[None, None, :] * exposure * 0.05
 
@@ -468,10 +475,12 @@ def sky_background_lut(
     height: int,
     width: int,
     exposure: float = 0.00031415927,
+    row_offset: int = 0,
+    full_height: int | None = None,
 ) -> torch.Tensor:
     """LUT-driven background: per-frame 128x256 LUT march + per-pixel bilinear."""
     lut = build_sky_view_lut(sun_direction)
-    dirs = view_ray_directions(inverse_view, p00, p11, height, width)
+    dirs = view_ray_directions(inverse_view, p00, p11, height, width, row_offset, full_height)
     lum = sample_sky_lut(lut, dirs, sun_direction)
     # The physically integrated LUT is ~10x dimmer than the closed-form
     # approximation of sky_background; keep the display brightness.

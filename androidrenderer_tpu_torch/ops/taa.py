@@ -210,31 +210,41 @@ def _on_screen(prev_uv: torch.Tensor) -> torch.Tensor:
             & (prev_uv[..., 1] >= 0.0) & (prev_uv[..., 1] <= 1.0))[..., None]
 
 
-def _pixel_uv(h: int, w: int, device) -> torch.Tensor:
-    """(H, W, 2) uv of the pixel centres."""
+def _pixel_uv(h: int, w: int, device, row_offset: int = 0, h_full: int | None = None):
+    """(H, W, 2) uv of the pixel centres of rows [row_offset, row_offset + H)
+    of a frame ``h_full`` rows high (default H)."""
     px = (torch.arange(w, dtype=torch.float32, device=device) + 0.5) / w
-    py = (torch.arange(h, dtype=torch.float32, device=device) + 0.5) / h
+    py = (torch.arange(h, dtype=torch.float32, device=device) + 0.5 + row_offset) / (h_full or h)
     return torch.stack([px[None, :].expand(h, w), py[:, None].expand(h, w)], dim=-1)
 
 
 def taa_resolve(
     current: torch.Tensor,  # (H, W, 3) this frame's lit scene (jittered render)
-    history: torch.Tensor,  # (H, W, 3) accumulated history
+    history: torch.Tensor,  # (H_full, W, 3) accumulated history (FULL frame)
     history_valid: torch.Tensor,  # () bool
     mv: torch.Tensor,  # (H, W, 2) uv motion
     blend: float = 0.1,
     pack8: bool = False,  # 8-byte history rows
+    row_offset: int = 0,  # band mode: first frame row of ``current``
+    current_halo: torch.Tensor | None = None,  # (H+2, W, 3) edge-halo'd current
 ):
     """(resolved, new_history) — exponential accumulation with a neighborhood
     clamp, at render resolution. The history is quantized per fetch only
-    (R11G11B10, or 8-byte rows with ``pack8``); the state stays f32. The JAX
-    version's band arguments (``row_offset``, ``current_halo``) come with
-    multi-device rendering (ROADMAP.md, port queue item 10)."""
+    (R11G11B10, or 8-byte rows with ``pack8``); the state stays f32.
+
+    Band mode (parallel/mesh.py): ``current`` is one band, ``history`` the
+    gathered full frame (reprojection reads other bands' rows),
+    ``current_halo`` supplies the 3x3 clamp's neighbour rows, and uv
+    coordinates are the frame's."""
     h, w, _ = current.shape
-    prev_uv = _pixel_uv(h, w, current.device) - mv
+    prev_uv = _pixel_uv(h, w, current.device, row_offset, history.shape[0]) - mv
     sample = _bilinear_sample_packed8 if pack8 else _bilinear_sample_packed
     hist = sample(history, prev_uv)
-    mn, mx = _neighborhood_minmax(current)
+    if current_halo is not None:
+        mn, mx = _neighborhood_minmax(current_halo)
+        mn, mx = mn[1:-1], mx[1:-1]
+    else:
+        mn, mx = _neighborhood_minmax(current)
     hist = torch.minimum(torch.maximum(hist, mn), mx)
     # Off-screen reprojection falls back to current.
     one = torch.ones((), dtype=torch.float32, device=current.device)

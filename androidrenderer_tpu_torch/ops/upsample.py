@@ -13,11 +13,14 @@ from __future__ import annotations
 import torch
 
 
-def _shift_rows(a: torch.Tensor, d: int) -> torch.Tensor:
-    """``a`` shifted up by ``d`` rows, the last row repeated (edge clamp)."""
-    if d == 0:
-        return a
-    return torch.cat([a[d:], a[-1:].expand(d, *a.shape[1:])], dim=0)
+def _shift_rows(a: torch.Tensor, d: int, lo: int, n: int) -> torch.Tensor:
+    """Rows [lo + d, lo + d + n) of a (possibly halo-extended) array, the last
+    row repeated past its end (edge clamp)."""
+    start = lo + d
+    if start + n <= a.shape[0]:
+        return a[start:start + n]
+    pad = start + n - a.shape[0]
+    return torch.cat([a[start:], a[-1:].expand(pad, *a.shape[1:])], dim=0)
 
 
 def _shift_cols(a: torch.Tensor, d: int) -> torch.Tensor:
@@ -37,6 +40,7 @@ def bilateral_upsample_2x(
     normal_half: torch.Tensor,  # (Hh, Wh, 3)
     depth_full: torch.Tensor,  # (H, W)
     normal_full: torch.Tensor,  # (H, W, 3)
+    row_halo: int = 0,  # extra half-res rows on each side (a band of a sharded frame)
 ) -> torch.Tensor:
     """(H, W, C) joint-bilateral reconstruction of a half-rate signal.
 
@@ -44,10 +48,10 @@ def bilateral_upsample_2x(
     subsample). Each full pixel blends its 4 surrounding half samples with
     bilinear x depth-similarity x normal-similarity weights; when every
     similarity weight dies (isolated silhouette pixels) the plain bilinear
-    fallback keeps the result finite. The JAX function's ``row_halo`` (a band
-    of a taller frame) belongs to multi-device band rendering, not ported
-    (ROADMAP.md item 10)."""
+    fallback keeps the result finite. A band of a sharded frame passes its
+    half-res inputs with ``row_halo`` neighbour rows on each side."""
     h, w = depth_full.shape
+    hh = h // 2
     dev = depth_full.device
     sig = signal_half if signal_half.dim() > 2 else signal_half[..., None]
 
@@ -59,9 +63,9 @@ def bilateral_upsample_2x(
     num = den = num_b = den_b = 0.0
     for dj in (0, 1):
         for di in (0, 1):
-            s = _repeat2(_shift_cols(_shift_rows(sig, dj), di))
-            d = _repeat2(_shift_cols(_shift_rows(depth_half, dj), di))
-            n = _repeat2(_shift_cols(_shift_rows(normal_half, dj), di))
+            s = _repeat2(_shift_cols(_shift_rows(sig, dj, row_halo, hh), di))
+            d = _repeat2(_shift_cols(_shift_rows(depth_half, dj, row_halo, hh), di))
+            n = _repeat2(_shift_cols(_shift_rows(normal_half, dj, row_halo, hh), di))
             wb = wy[dj] * wx[di]
             rel = torch.abs(d - depth_full) / (torch.abs(depth_full) + 1e-6)
             wd = 1.0 / (1.0 + 32.0 * rel)

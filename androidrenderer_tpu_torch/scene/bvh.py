@@ -20,9 +20,8 @@ Built host-side (this numpy builder or the bit-identical C++ one in
 native/sah_native.cpp, ~15x faster at Sponza scale; ``native.py`` of this
 package builds and binds it).
 
-A copy of the JAX package's scene/bvh.py (numpy only). Left out:
-``complete_tree_level_slots``, whose only caller is the dynamic-scene refit
-(ROADMAP.md, port queue item 9).
+A copy of the JAX package's scene/bvh.py (numpy only). Its
+``complete_tree_level_slots`` feeds the dynamic-scene refit (scene/dynamic.py).
 """
 
 from __future__ import annotations
@@ -107,6 +106,29 @@ def median_split_order(
         stack.append((s[half:], half))
         stack.append((s[:half], half))
     return out
+
+
+def complete_tree_level_slots(num_leaves_pow2: int):
+    """Preorder slot index of every (level, index) node of the complete tree.
+
+    The BVH topology is implicit in the leaf count (complete tree, preorder
+    flatten), so a REFIT (raytracing_scene.cpp:50-170 update path) only has to
+    recompute AABBs bottom-up and scatter them into the static preorder slots
+    this function enumerates. Returns [level 0 (leaves) slots, level 1, ...]."""
+    p = num_leaves_pow2
+    depth = int(np.log2(p)) if p > 1 else 0
+    levels = depth + 1
+    slots = [np.zeros(p >> k, np.int64) for k in range(levels)]
+    m_total = 2 * p - 1
+    stack = [(levels - 1, 0, 0)]
+    while stack:
+        lvl, idx, slot = stack.pop()
+        slots[lvl][idx] = slot
+        if lvl > 0:
+            left_size = (1 << lvl) - 1
+            stack.append((lvl - 1, idx * 2, slot + 1))
+            stack.append((lvl - 1, idx * 2 + 1, slot + 1 + left_size))
+    return [s.astype(np.int32) for s in slots]
 
 
 def build_bvh(

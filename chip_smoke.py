@@ -127,19 +127,50 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    eight frame visualizers through visualize() on the TAA run's outputs, with
    none and overdraw raising;
 17. A and B at 128^2, card against CPU, with phase 5's thresholds;
-18. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+18. the band raster: the kernel with ``row_offset`` against its plain version at
+   the band call sites, and each band against the same rows of the full-frame
+   kernel output, all bit for bit: the parity main view (1280x736, alpha grid)
+   in the sharded parity frame's 2 bands of 368 rows, the 1024^2 cascade 0 in 4
+   bands (depth_only + affine_z), and the exact peel's layer 1 (rasterize_binned
+   with its z_limit) on the lower of 2 bands at 1088x1920; call ms, kernel-only
+   time, bound (``raster_bound`` on the band's own inputs), work counts and
+   plain ms per band;
+19. dynamic scenes (scene/dynamic.py) on the bench scene: (a) the build
+   transforms reproduce the bake (positions, node boxes, sphere centres within
+   tests/test_dynamic.py's 2e-5); (b) for 3 frames' transforms (the first
+   ring's columns and capitals lifted and turned) the update on the card equals
+   the update on the CPU: positions, bounds, corner tables, node boxes, slot
+   tables and packed rows bit-equal, normals and tangents within 1e-6; the
+   update and refit times; (c) the traversal kernel against its plain version
+   on the refit BVH at the RT frame's shadow site, as in 12(b); (d) a column
+   lifted 6 m: a ray across its old place misses, one across its new place
+   hits; (e) the RT frame (phase 12's) with the update before each of 3
+   frames: ms/frame, and exactly 5 traversal and 4 raster launches per frame;
+20. bands over 2 ranks on the one card (``parallel.mesh.run_ranks``, gloo; a
+   multi-card NCCL run is not attempted): (a) ``dryrun_multichip(2)``, two
+   frames; (b) the parity frame with tile_height=16 (2 bands of 368 rows) over
+   3 moving jittered frames against the single-device parity frame, within
+   phase 5's thresholds and at most one u8 step on at most 0.01% of pixels;
+   (c) ms/frame of both, the ``frame/collectives`` ranges' host and device
+   time, and each rank's raster launches per frame (its main-view band, its
+   share of the frame's cascades, the RSM); (d) peak device memory per rank;
+21. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
    the raster family, #5 the gather, each with its call time ``ms``, its
    kernel-only time ``kernel_ms`` and its bound; #1 also at the RSM call site,
-   ``rsm_*``, and at the VRSAA main view, ``vrsaa_*``; then the port-queue
-   traversal kernel, at the shadow site with the other sites as ``rtao_*``,
-   ``primary_*``, ``rtgi_*``, ``rtgi_shadow_*``, ``peel_*``, ``probe_*`` and
-   ``probe_shadow_*``), the card line, and the final JSON line.
+   ``rsm_*``, at the VRSAA main view, ``vrsaa_*``, and at the band sites,
+   ``band_*`` and ``band_cascade_*``; #2 at the band peel, ``band_peel_*``; then
+   the port-queue traversal kernel, at the shadow site with the other sites as
+   ``rtao_*``, ``primary_*``, ``rtgi_*``, ``rtgi_shadow_*``, ``peel_*``,
+   ``probe_*``, ``probe_shadow_*`` and the refit BVH's ``refit_shadow_*``, with
+   the dynamic phase's ``dynamic_*`` times), the card line, and the final JSON
+   line.
 
-Launch counts are read per path (the frames of phases 4, 7, 8, 12-15, the gather
-tool of phase 9, the entry-point calls of phase 10, the microbench of phase 11,
-each CLI run of phase 16): every count is set to 0 just before a path runs and
-read just after, so the launches of the comparisons never count; every path but
-phases 12-14's and the CLI's probe run must make no traversal launch.
+Launch counts are read per path (the frames of phases 4, 7, 8, 12-15 and 19, the
+gather tool of phase 9, the entry-point calls of phase 10, the microbench of
+phase 11, each CLI run of phase 16, each rank's frames in phase 20): every count
+is set to 0 just before a path runs and read just after, so the launches of the
+comparisons never count; every path but phases 12-14's and 19's and the CLI's
+probe run must make no traversal launch.
 
 It needs torch with CUDA and the repository beside it; it imports no JAX.
 """
@@ -211,7 +242,7 @@ def parent_raster_launch(records, height, width, depth_only, affine_z, z_limit, 
 
 
 def raster_site(label, setup, height, width, depth_only=False, affine_z=False, z_limit=None,
-                alpha_grid=None, mirror=False):
+                alpha_grid=None, mirror=False, row_offset=0):
     """Kernel-only time (and the other tree's, in turns) of one raster call
     site, and the kernel's work counts read from its scratch counters (and the
     plain mirror's, with ``mirror``); printed, and returned as a dict."""
@@ -224,17 +255,19 @@ def raster_site(label, setup, height, width, depth_only=False, affine_z=False, z
 
     rec = pack_fused_records(setup, affine_z=affine_z)
     args = (rec, height, width, depth_only, affine_z, z_limit, alpha_grid)
-    call = prepare_raster(*args)
+    call = prepare_raster(*args, row_offset=row_offset)
     call.launch()
     work = work_counts(call.counts)
-    kernel_ms, parent_ms = in_turns(call.launch, parent_raster_launch(*args))
+    # The other tree's kernel has no row offset: it is timed at full frames only.
+    parent = parent_raster_launch(*args) if row_offset == 0 else None
+    kernel_ms, parent_ms = in_turns(call.launch, parent)
     text = (f"  {label} kernel-only {kernel_ms * 1e3:.2f} us"
             + ("" if parent_ms is None else f" (other tree's kernel {parent_ms * 1e3:.2f} us)")
             + f"; work: {work['live']} live records, {work['units']} units "
             f"({work['small']} small records, {work['large_units']} tiles of {work['large']} "
             f"large), {work['evaluated']} pixels evaluated of {work['bbox_pixels']} bbox pixels")
     if mirror:
-        plain = span_work(rec, height, width)
+        plain = span_work(rec, height, width, row_offset)
         text += f"; plain mirror's counts equal: {all(work[k] == v for k, v in plain.items())}"
     print(text)
     return dict(kernel_ms=kernel_ms, parent_kernel_ms=parent_ms, work=work)
@@ -252,7 +285,8 @@ def bench_setup(device):
     width, height = 1920, 1088
     cfg = raster_only_config(width, height)
     t0 = time.perf_counter()
-    scene, stats = courtyard_scene(column_rings=4, detail=13, curtains=True).build(device=device)
+    BENCH["render_scene"] = courtyard_scene(column_rings=4, detail=13, curtains=True)
+    scene, stats = BENCH["render_scene"].build(device=device)
     print(f"scene: {stats} (bake + upload {time.perf_counter() - t0:.1f} s)")
     cam = Camera(
         fov_degrees=cfg.fov_degrees, aspect=width / height,
@@ -262,6 +296,11 @@ def bench_setup(device):
     cam.pitch, cam.yaw = -0.05, np.pi
     return cfg, scene, stats, cam.view_data()
 
+
+# The band sites' keys in the results line.
+BAND_KEYS = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "index", "work")
+# The bench scene's RenderScene (bench_setup), which the dynamic phase reads.
+BENCH = {}
 
 # The kernels of csrc/*.cu, by name, for the profile's per-kernel times.
 HAND_KERNELS = ("prep_kernel", "scan_kernel", "raster_kernel", "resolve_kernel",
@@ -277,7 +316,7 @@ FP32_OPS_PER_S = 67e12 / 2
 
 
 def raster_bound(setup, height, width, depth_only=False, affine_z=False, z_limit=None,
-                 alpha_grid=None):
+                 alpha_grid=None, row_offset=0):
     """(least ms the card could take for one raster call, "bytes" or "operations",
     the counts as text), from the work this call's data needs, counted with the
     plain version's fragment walk over each live record's clipped bbox.
@@ -303,14 +342,14 @@ def raster_bound(setup, height, width, depth_only=False, affine_z=False, z_limit
 
     rec = pack_fused_records(setup, affine_z=affine_z)
     n = rec.shape[0]
-    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width)
+    bx0, by0, bx1, by1, live = record_bboxes(rec, height, width, row_offset)
     n_live = int(live.sum())
     bbox_px = int(((bx1 - bx0 + 1) * (by1 - by0 + 1))[live].sum())
     zl = None if z_limit is None else z_limit.reshape(-1)
     zl_read = torch.zeros(height * width, dtype=torch.bool, device=rec.device)
     words = torch.zeros(n * 8, dtype=torch.bool, device=rec.device)
     covered = alpha_tests = 0
-    for tri, frag in patch_fragments(rec, height, width, affine_z):
+    for tri, frag in patch_fragments(rec, height, width, affine_z, row_offset=row_offset):
         covered += int(frag.covered.sum())
         tested = frag.covered & (frag.z > 0.0) & (frag.z <= 1.0)
         if zl is not None:
@@ -463,7 +502,7 @@ def compare(label, fn, setup, height, width, **kw):
     from androidrenderer_tpu_torch.ops.raster import rasterize_reference
 
     plain_kw = {k: v for k, v in kw.items() if k in ("depth_only", "affine_z", "z_limit",
-                                                     "alpha_grid")}
+                                                     "alpha_grid", "row_offset")}
     got = fn(setup, height, width, **kw)
     want = rasterize_reference(setup, height, width, **plain_kw)
     torch.cuda.synchronize()
@@ -473,11 +512,7 @@ def compare(label, fn, setup, height, width, **kw):
     err = (got_t[0] - want_t[0]).abs().max().item()
     ms = cuda_ms(lambda: fn(setup, height, width, **kw))
     plain_ms = cuda_ms(lambda: rasterize_reference(setup, height, width, **plain_kw))
-    bound_ms, bound_by, work = raster_bound(
-        setup, height, width, depth_only=kw.get("depth_only", False),
-        affine_z=kw.get("affine_z", False), z_limit=kw.get("z_limit"),
-        alpha_grid=kw.get("alpha_grid"),
-    )
+    bound_ms, bound_by, work = raster_bound(setup, height, width, **plain_kw)
     live = int(setup.valid.sum())
     print(f"{label} {height}x{width}, {live} live triangles: bit-equal={eq} "
           f"max|d depth|={err} kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
@@ -1426,6 +1461,409 @@ def cli_phase(card: str):
     return totals, problems
 
 
+def band_raster_phase(scene, view, cascade0, res):
+    """Phase 17: the kernel with ``row_offset`` against its plain version at the
+    band call sites, each band also against the same rows of the full-frame
+    kernel output, bit for bit: (sites by name, ok)."""
+    import torch
+
+    from androidrenderer_tpu_torch.config import default_frame_config, parity_frame_config
+    from androidrenderer_tpu_torch.ops.raster.masked import _sample_alpha, pack_alpha_planes
+    from androidrenderer_tpu_torch.render.frame import main_view_setup
+
+    eps = entry_points()
+    sites, ok = {}, True
+
+    def bands(label, fn, setup, h, w, n, full, **kw):
+        """Each of ``n`` bands through ``fn`` against the plain version and the
+        rows of ``full``: the results of the band with the longest kernel time."""
+        nonlocal ok
+        b, worst = h // n, None
+        full = full if isinstance(full, tuple) else (full,)
+        for i in range(n):
+            rows = slice(i * b, (i + 1) * b)
+            band_kw = dict(kw, row_offset=i * b)
+            if kw.get("z_limit") is not None:
+                band_kw["z_limit"] = kw["z_limit"][rows].contiguous()
+            got, r = compare(f"{label} band {i} of {n} (rows {i * b}-{(i + 1) * b - 1})", fn,
+                             setup, b, w, **band_kw)
+            got = got if isinstance(got, tuple) else (got,)
+            rows_eq = all(torch.equal(g, f[rows]) for g, f in zip(got, full))
+            print(f"  band {i}: equal to those rows of the full-frame kernel output: {rows_eq}")
+            ok &= r["eq"] and rows_eq
+            if worst is None or r["kernel_ms"] > worst["kernel_ms"]:
+                worst = dict(r, index=i)
+        return worst
+
+    # The parity frame's main view (1280x736) in the sharded parity frame's 2 bands.
+    pcfg = parity_frame_config()
+    pview = parity_view(pcfg)
+    h, w = pcfg.render_height, pcfg.render_width
+    _, opaque, grid = main_view_setup(scene, pview, pcfg)
+    full = eps["rasterize"](opaque, h, w, alpha_grid=grid)
+    raster_site(f"rasterize parity main view + alpha grid, the full {h}x{w} frame", opaque, h, w,
+                alpha_grid=grid)
+    sites["main"] = bands("rasterize parity main view + alpha grid", eps["rasterize"], opaque,
+                          h, w, 2, full, alpha_grid=grid)
+    # One 1024^2 cascade in 4 bands (depth_only + affine_z).
+    kw = dict(depth_only=True, affine_z=True)
+    full = eps["rasterize"](cascade0, res, res, **kw)
+    sites["cascade"] = bands("rasterize cascade 0", eps["rasterize"], cascade0, res, res, 4,
+                             full, **kw)
+    # The exact-alpha peel's layer 1 (its z_limit) on the lower band of 2 at 1088x1920.
+    h, w = 1088, 1920
+    setup, _, _ = main_view_setup(scene, view, default_frame_config(w, h, alpha_bitmap=False))
+    masked = setup._replace(valid=setup.valid & (scene.tri_alpha_mode == 1))
+    d0, v0 = eps["rasterize_binned"](masked, h, w)
+    alpha, cutoff = _sample_alpha(scene, masked, v0, alpha_planes=pack_alpha_planes(scene, masked))
+    zl = torch.where((v0 >= 0) & ~(alpha >= cutoff), d0,
+                     torch.full_like(d0, float("inf")))
+    full = eps["rasterize_binned"](masked, h, w, z_limit=zl)
+    b = h // 2
+    got, r = compare(f"rasterize_binned peel layer 1 band 1 of 2 (rows {b}-{h - 1})",
+                     eps["rasterize_binned"], masked, b, w, z_limit=zl[b:].contiguous(),
+                     row_offset=b)
+    rows_eq = torch.equal(got[0], full[0][b:]) and torch.equal(got[1], full[1][b:])
+    print(f"  equal to those rows of the full-frame kernel output: {rows_eq}")
+    ok &= r["eq"] and rows_eq and bool(torch.isfinite(zl[b:]).any())
+    sites["peel"] = dict(r, index=1)
+    return sites, ok
+
+
+# The bench scene's primitives 5 + 3k and 6 + 3k: the first ring's columns and
+# capitals (scene/procedural.py::courtyard_scene).
+RING0 = [5 + 3 * k for k in range(8)] + [6 + 3 * k for k in range(8)]
+
+
+def moved_transforms(base, i: int, lift: float = 0.3, turn: float = 0.2):
+    """(P, 4, 4) transforms of frame ``i``: the first ring lifted by
+    lift * (i + 1) metres and turned by turn * (i + 1) radians about its own
+    vertical axis; every other primitive where it was built."""
+    import numpy as np
+    import torch
+
+    tr = base.cpu().numpy().copy()
+    a = turn * (i + 1)
+    ry = np.eye(4, dtype=np.float32)
+    ry[0, 0], ry[0, 2], ry[2, 0], ry[2, 2] = np.cos(a), np.sin(a), -np.sin(a), np.cos(a)
+    for p in RING0:
+        tr[p] = tr[p] @ ry
+        tr[p, 1, 3] += lift * (i + 1)
+    return torch.from_numpy(tr).to(base.device)
+
+
+def dynamic_phase(scene, render_scene, view, profile: bool, card: str):
+    """Phase 18: (the refit BVH's shadow site, launches by entry point, failed
+    checks) of the RT frame over moving primitives on the bench scene."""
+    import numpy as np
+    import torch
+
+    from androidrenderer_tpu_torch.config import (
+        AOMode, RenderParams, ShadowMode, default_frame_config,
+    )
+    from androidrenderer_tpu_torch.ops.rt import effects
+    from androidrenderer_tpu_torch.ops.rt.traverse import occlusion
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+    from androidrenderer_tpu_torch.scene import dynamic
+    from androidrenderer_tpu_torch.scene.scene import (
+        scene_arrays_from_numpy, scene_arrays_to_numpy,
+    )
+
+    problems = []
+    t0 = time.perf_counter()
+    dyn = dynamic.make_dynamic_data(render_scene, scene)
+    base = dynamic.initial_transforms(render_scene, "cuda")
+    print(f"dynamic data: {time.perf_counter() - t0:.2f} s, {base.shape[0]} primitives, "
+          f"{len(dyn.level_slots)} BVH levels")
+    # (a) The build transforms against the bake (float32 here, float64 there).
+    same = dynamic.update_primitive_transforms(scene, dyn, base)
+    n = sum(render_scene.meshes.meshes[p.mesh_id].num_vertices for p in render_scene.primitives)
+    d_pos = (same.positions[:n] - scene.positions[:n]).abs().max().item()
+    eq_pos = (same.positions[:n] == scene.positions[:n]).all(-1).float().mean().item()
+    lo, hi = -1e30, 1e30
+    d_box = max((getattr(same.bvh, f).clamp(lo, hi) - getattr(scene.bvh, f).clamp(lo, hi))
+                .abs().max().item() for f in ("node_min", "node_max"))
+    np_ = len(render_scene.primitives)
+    d_ctr = (same.prim_bounds[:np_, :3] - scene.prim_bounds[:np_, :3]).abs().max().item()
+    print(f"(a) build transforms vs the bake: max|d position| {d_pos:.3g} ({eq_pos:.4f} of "
+          f"vertices bit-equal), max|d node box| {d_box:.3g}, max|d sphere centre| {d_ctr:.3g} "
+          f"(bound 2e-5, tests/test_dynamic.py); radii are the Frobenius bound by design")
+    if max(d_pos, d_box, d_ctr) > 2e-5:
+        problems.append("the build transforms do not reproduce the bake")
+    # (b) The update on the card against the update on the CPU, every frame's transforms.
+    cpu_scene = scene_arrays_from_numpy(scene_arrays_to_numpy(scene), "cpu")
+    cpu_dyn = dynamic.make_dynamic_data(render_scene, cpu_scene)
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    worst = 0.0
+    for i in range(3):
+        tr = moved_transforms(base, i)
+        dev_s = dynamic.update_primitive_transforms(scene, dyn, tr)
+        host = dynamic.update_primitive_transforms(cpu_scene, cpu_dyn, tr.cpu())
+        exact = [("positions", dev_s.positions, host.positions),
+                 ("prim_bounds", dev_s.prim_bounds, host.prim_bounds),
+                 ("tri_corner_pos", dev_s.tri_corner_pos, host.tri_corner_pos),
+                 ("proxy.corners", dev_s.proxy.corners, host.proxy.corners)]
+        exact += [(f"bvh.{f}", getattr(dev_s.bvh, f), getattr(host.bvh, f))
+                  for f in ("node_min", "node_max", "slot_v0", "slot_e1", "slot_e2", "node_rows")]
+        bad = [k for k, a, b in exact if not torch.equal(bits(a).cpu(), bits(b))]
+        d_n = max((a.cpu() - b).abs().max().item() for a, b in (
+            (dev_s.normals, host.normals), (dev_s.tangents, host.tangents),
+            (dev_s.tri_attr_corners, host.tri_attr_corners),
+            (dev_s.proxy.normals, host.proxy.normals)))
+        worst = max(worst, d_n)
+        print(f"(b) frame {i} transforms, card vs CPU: positions, bounds, corner tables, node "
+              f"boxes, slot tables and rows bit-equal: {not bad}{'' if not bad else f' ({bad})'}; "
+              f"max|d normal, tangent| {d_n:.3g} (bound 1e-6)")
+        if bad or d_n > 1e-6:
+            problems.append(f"frame {i}: the card's update differs from the CPU's ({bad}, {d_n})")
+    del cpu_scene, cpu_dyn
+    tr = moved_transforms(base, 0)
+    update_ms = cuda_ms(lambda: dynamic.update_primitive_transforms(scene, dyn, tr))
+    moved = dynamic.update_primitive_transforms(scene, dyn, tr)
+    refit_ms = cuda_ms(lambda: dynamic.refit_bvh(scene.bvh, moved.positions, scene.tri_indices,
+                                                 dyn.level_slots))
+    print(f"(e) update_primitive_transforms {update_ms:.3f} ms (refit_bvh alone {refit_ms:.3f} ms), "
+          f"CUDA-event medians of 5 ({card})")
+
+    # (c) The traversal kernel on the refit BVH at the RT frame's shadow site.
+    cfg = default_frame_config(1920, 1088, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
+    params = RenderParams.default()
+    first, _ = make_renderer(cfg)(moved, view, params, temporal_state_for(cfg, device="cuda"))
+    g = first.gbuffer
+    h, w = g.valid.shape
+    o_s, d_s = effects.sun_shadow_rays(g.world_position, g.normal, moved.sun_direction,
+                                       moved.sun_angular_size, 0)
+    site = trace_site("shadow rays (refit BVH)", moved.bvh, o_s, d_s, effects.RAY_EPS, 1e30,
+                      True, subset(h * w, 18))
+    if not site["eq"]:
+        problems.append("the kernel and the plain version disagree on the refit BVH")
+    # (d) tests/test_dynamic.py's check: column 0 of the first ring (y 0-5 m at
+    # x = -10.5, z = -6) lifted 6 m; a ray across its old place misses, one
+    # across its new place hits.
+    lift = base.clone()
+    lift[RING0[0], 1, 3] += 6.0
+    lifted = dynamic.update_primitive_transforms(scene, dyn, lift)
+    o = torch.tensor([[-11.5, 2.5, -6.0], [-11.5, 8.5, -6.0]], device="cuda")
+    d = torch.tensor([[1.0, 0.0, 0.0]] * 2, device="cuda")
+    before, after = occlusion(scene.bvh, o, d, 1e-3, 1.5), occlusion(lifted.bvh, o, d, 1e-3, 1.5)
+    print(f"(d) column lifted 6 m: old-place ray hit before {bool(before[0])}, after "
+          f"{bool(after[0])}; new-place ray hit before {bool(before[1])}, after {bool(after[1])}")
+    if not (bool(before[0]) and not bool(after[0]) and bool(after[1]) and not bool(before[1])):
+        problems.append("the refit BVH does not follow the lifted column")
+
+    # (e) The RT frame with the update before each frame: 5 traversal launches
+    # (the shadow rays and rtao_num_samples = 4 AO rays) and 4 raster launches
+    # (occlusion phases 1 and 2, 2 translucent layers; RT shadows replace the
+    # cascades) per frame, as in phase 12; the update and the refit launch no
+    # kernel of csrc/ (PyTorch ops only).
+    render = make_renderer(cfg)
+    temp = temporal_state_for(cfg, device="cuda")
+    for i in range(2):  # warm-up
+        _, temp = render(dynamic.update_primitive_transforms(scene, dyn, moved_transforms(base, i)),
+                         view, params, temp)
+    eps = entry_points()
+    for f in eps.values():
+        f.launches = 0
+    frames = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(frames):
+        s_i = dynamic.update_primitive_transforms(scene, dyn, moved_transforms(base, i))
+        out, temp = render(s_i, view, params, temp)
+    torch.cuda.synchronize()
+    frame_ms = (time.perf_counter() - t0) * 1e3 / frames
+    launches = {name: f.launches for name, f in eps.items()}
+    print(f"dynamic RT frame (update + refit + frame) {frame_ms:.3f} ms/frame over {frames} "
+          f"frames ({card}); launches per frame: "
+          + ", ".join(f"{k} {v / frames:g}" for k, v in launches.items() if v))
+    for name, n in launches.items():
+        want = {"rasterize": 4, "trace_rays": 5}.get(name, 0) * frames
+        if n != want:
+            problems.append(f"dynamic frame: {name} launches {n} != {want}")
+    if not bool(torch.isfinite(out.hdr).all()) or int(out.image.amax()) == int(out.image.amin()):
+        problems.append("dynamic frame: the image is not a frame")
+    state = {"temp": temp, "i": 0}
+
+    def step():
+        with torch.profiler.record_function("frame/dynamic_update"):
+            s_i = dynamic.update_primitive_transforms(
+                scene, dyn, moved_transforms(base, state["i"] % 3))
+        _, state["temp"] = render(s_i, view, params, state["temp"])
+        state["i"] += 1
+
+    print_split("dynamic RT frame", *stage_split(step))
+    site.update(update_ms=update_ms, refit_ms=refit_ms, frame_ms=frame_ms,
+                normal_err=worst)
+    return site, launches, problems
+
+
+def stage_split(step, frames: int = 2):
+    """Profile ``frames`` calls of ``step()``: (wall ms, device-busy ms, {range:
+    (host ms, device ms)}) per frame, for every ``frame/*`` range (device ms:
+    the PyTorch kernels the range launched; the hand kernels, launched through
+    ctypes, count in the busy time only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / frames
+    busy, stages = 0.0, {}
+    for e in prof.key_averages():
+        self_dev = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        total_dev = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+        if e.key.startswith("frame/") and e.cpu_time_total > 0:
+            stages[e.key] = (e.cpu_time_total / 1e3 / frames, total_dev / 1e3 / frames)
+        elif e.cpu_time_total == 0 and self_dev > 0 and not e.key.startswith("frame/"):
+            busy += self_dev / 1e3 / frames
+    return wall, busy, stages
+
+
+def print_split(label, wall, busy, stages):
+    print(f"{label}: profiled {wall:.3f} ms/frame, device busy {busy:.3f} ms ({busy / wall:.1%}); "
+          "host / device ms per frame: " + ", ".join(
+              f"{k[6:]} {h:.1f} / {d:.1f}" for k, (h, d) in sorted(stages.items(), key=lambda x: -x[1][0])))
+
+
+def _bands_rank(group, device, cfg, views, timed):
+    """One rank of phase 19: the bench scene's parity frames over ``views`` on
+    its band, then ``timed`` chained frames timed and 2 profiled; returns
+    (gathered images, its stats) on rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from androidrenderer_tpu_torch.config import RenderParams
+    from androidrenderer_tpu_torch.parallel import collectives as coll
+    from androidrenderer_tpu_torch.parallel.mesh import make_sharded_renderer, shard_temporal
+    from androidrenderer_tpu_torch.render import temporal_state_for
+    from androidrenderer_tpu_torch.scene.procedural import courtyard_scene
+
+    scene, _ = courtyard_scene(column_rings=4, detail=13, curtains=True).build(
+        device=device, with_bvh=False)
+    render = make_sharded_renderer(cfg, group)
+    params = RenderParams.default()
+    temp = shard_temporal(temporal_state_for(cfg, device=device), group)
+    eps = entry_points()
+    for f in eps.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    images = []
+    for v in views:
+        out, temp = render(scene, v, params, temp)
+        images.append(coll.gather_rows(out.image, group).cpu().numpy())
+    launches = {k: f.launches / len(views) for k, f in eps.items() if f.launches}
+    torch.cuda.synchronize()
+    dist.barrier(group)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        out, temp = render(scene, views[-1], params, temp)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / timed
+    state = {"temp": temp}
+
+    def step():
+        _, state["temp"] = render(scene, views[-1], params, state["temp"])
+
+    wall, busy, stages = stage_split(step)
+    host, dev_ms = stages.get("frame/collectives", (0.0, 0.0))
+    stats = dict(rank=dist.get_rank(group), launches=launches, ms=ms, wall=wall,
+                 collectives_host_ms=host, collectives_device_ms=dev_ms, busy_ms=busy,
+                 stages=stages, peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    every = [None] * dist.get_world_size(group)
+    dist.all_gather_object(every, stats, group=group)
+    return (images, every) if dist.get_rank(group) == 0 else None
+
+
+def bands_phase(scene, profile: bool, card: str):
+    """Phase 19: (ms by path, failed checks) of band sharding over 2 ranks on the
+    card (gloo: NCCL takes one card per rank)."""
+    import numpy as np
+    import torch
+
+    from androidrenderer_tpu_torch.camera import Camera, taa_jitter
+    from androidrenderer_tpu_torch.config import RenderParams, parity_frame_config
+    from androidrenderer_tpu_torch.parallel.dryrun import dryrun_multichip
+    from androidrenderer_tpu_torch.parallel.mesh import check_split, run_ranks
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+
+    problems = []
+    store = REPO / "build" / "torch_kernels" / "bands_store"
+    print(f"bands: backend gloo, 2 ranks on torch.cuda.device_count() = "
+          f"{torch.cuda.device_count()} card(s); a multi-card NCCL run is not attempted")
+    # (a) The dry run: two frames on 2 ranks.
+    t0 = time.perf_counter()
+    shapes = dryrun_multichip(2, "cuda", backend="gloo", init_file=str(store))
+    print(f"(a) dryrun_multichip(2, cuda, gloo): frames {shapes} in {time.perf_counter() - t0:.1f} s")
+    # (b) The parity frame over 2 bands (tile_height 16: 736 = 2 x 23 x 16)
+    # against the single-device parity frame, 3 moving jittered frames.
+    cfg = parity_frame_config().replace(tile_height=16)
+    print(f"(b) parity frame with tile_height=16 (the only change from parity_frame_config), "
+          f"bands of {check_split(cfg, 2)} render and {cfg.output_height // 2} output rows")
+    cam = Camera(fov_degrees=cfg.fov_degrees, aspect=cfg.output_width / cfg.output_height,
+                 z_near=cfg.z_near, render_resolution=(cfg.render_width, cfg.render_height))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    views = []
+    for i in range(3):
+        cam.set_jitter(taa_jitter(i + 1))
+        views.append(cam.view_data())
+        cam.end_frame()
+        cam.translate_local([0.04, 0.0, -0.15])
+        cam.rotate(0.004, -0.01)
+    t0 = time.perf_counter()
+    images, stats = run_ranks(2, _bands_rank, cfg, views, 10, device="cuda", backend="gloo",
+                              init_file=str(store))
+    print(f"  2 ranks ran in {time.perf_counter() - t0:.1f} s")
+    render = make_renderer(cfg)
+    temp = temporal_state_for(cfg, device="cuda")
+    singles = []
+    for v in views:
+        out, temp = render(scene, v, RenderParams.default(), temp)
+        singles.append(out.image.cpu().numpy())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        out, temp = render(scene, views[-1], RenderParams.default(), temp)
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3 / 10
+    worst_share = worst_far = 0.0
+    worst_d = 0
+    for i, (a, b) in enumerate(zip(images, singles)):
+        d = np.abs(a.astype(int) - b.astype(int)).max(-1)
+        share, far = float((d > 0).mean()), float((d > 1).mean())
+        worst_share, worst_far, worst_d = max(worst_share, share), max(worst_far, far), max(worst_d, int(d.max()))
+        print(f"  frame {i}: 2 bands vs one device: {int((d > 0).sum())} of {d.size} pixels "
+              f"differ (share {share:.6f}), {int((d > 1).sum())} by more than one u8 step, "
+              f"max {int(d.max())}")
+    if a.shape != b.shape or worst_far > 0.005 or worst_share > 1e-4 or worst_d > 1:
+        problems.append(f"the 2-band parity frame is not within the bounds of the single-device "
+                        f"frame (share {worst_share}, > 1 step {worst_far}, max {worst_d})")
+    # (c), (d) Times, the collectives' share, launches and memory per rank.
+    main_view, cascades, rsm = 1, 2, 1  # per frame: occlusion off; budget 1 -> cascades 0 and k
+    for s in stats:
+        want = main_view + (cascades + 1 - s["rank"]) // 2 + rsm
+        print(f"  rank {s['rank']}: {s['ms']:.3f} ms/frame over 10 chained frames ({card}); "
+              f"profiled {s['wall']:.3f} ms/frame, frame/collectives host {s['collectives_host_ms']:.3f} ms "
+              f"({s['collectives_host_ms'] / s['wall']:.1%}), its device time "
+              f"{s['collectives_device_ms']:.3f} ms of {s['busy_ms']:.3f} ms busy; launches per frame "
+              f"{s['launches']} (expected rasterize {want}: main view band, "
+              f"{(cascades + 1 - s['rank']) // 2} of the frame's {cascades} cascades, the RSM); "
+              f"peak device memory {s['peak_gib']:.2f} GiB")
+        print_split(f"  rank {s['rank']}", s["wall"], s["busy_ms"], s["stages"])
+        if s["launches"] != {"rasterize": float(want)}:
+            problems.append(f"rank {s['rank']} launches {s['launches']} != rasterize {want}")
+    print(f"parity_2band_ms: {max(s['ms'] for s in stats):.3f}, single device "
+          f"{single_ms:.3f} ms/frame ({card})")
+    return dict(band_ms=max(s["ms"] for s in stats), single_ms=single_ms,
+                pixels_differing=worst_share), problems
+
+
 def main(argv) -> int:
     import torch
 
@@ -1453,7 +1891,8 @@ def main(argv) -> int:
     print(f"device: {kind} (torch {torch.__version__}, CUDA {torch.version.cuda})")
     print(f"nvidia-smi: {smi}")
 
-    # 2. build, one nvcc for each source, all started together
+    # 2. build, one nvcc for each source, all started together (before any rank
+    # of phase 20 starts: the ranks load these builds)
     if "--parent-csrc" in argv:
         parent = Path(argv[argv.index("--parent-csrc") + 1]).resolve()
         PARENT["raster"] = Library(parent / "raster.cu", {"raster_launch": [
@@ -1561,8 +2000,6 @@ def main(argv) -> int:
     vrsaa, path_launches["vrsaa"], problems = vrsaa_phase(scene, profile, f"{kind}; {smi}")
     if problems:
         return fail("VRSAA frame: " + "; ".join(problems))
-    del scene
-    torch.cuda.empty_cache()
 
     # 16. the headless CLI
     t0 = time.perf_counter()
@@ -1577,7 +2014,32 @@ def main(argv) -> int:
         if not card_vs_cpu(f"frame {label}", overrides, curtains=True):
             return fail(f"frame {label}: card and CPU frames disagree")
 
-    # 18. results
+    # 18. the band raster
+    t0 = time.perf_counter()
+    band, ok = band_raster_phase(scene, view, cascade0, cfg.shadow_cascade_resolution)
+    if not ok:
+        return fail("the band raster: the kernel, the plain version or the full frame's rows "
+                    "disagree")
+    print(f"band raster phase: {time.perf_counter() - t0:.1f} s")
+
+    # 19. dynamic scenes
+    t0 = time.perf_counter()
+    refit, path_launches["dynamic"], problems = dynamic_phase(
+        scene, BENCH["render_scene"], view, profile, f"{kind}; {smi}")
+    if problems:
+        return fail("dynamic scene: " + "; ".join(problems))
+    print(f"dynamic phase: {time.perf_counter() - t0:.1f} s")
+
+    # 20. bands over 2 ranks
+    t0 = time.perf_counter()
+    bands, problems = bands_phase(scene, profile, f"{kind}; {smi}")
+    if problems:
+        return fail("bands: " + "; ".join(problems))
+    print(f"bands phase: {time.perf_counter() - t0:.1f} s")
+    del scene
+    torch.cuda.empty_cache()
+
+    # 21. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 
@@ -1595,7 +2057,9 @@ def main(argv) -> int:
              rsm_parent_kernel_ms=rsm["parent_kernel_ms"], rsm_plain_ms=rsm["plain_ms"],
              rsm_bound_ms=rsm["bound_ms"], rsm_bound_by=rsm["bound_by"],
              **{f"vrsaa_{k}": vrsaa[k] for k in ("ms", "kernel_ms", "parent_kernel_ms",
-                                                 "plain_ms", "bound_ms", "bound_by", "work")}),
+                                                 "plain_ms", "bound_ms", "bound_by", "work")},
+             **{f"band_{k}": band["main"][k] for k in BAND_KEYS},
+             **{f"band_cascade_{k}": band["cascade"][k] for k in BAND_KEYS}),
     ]
     def bench(label):
         return {mode: t[label] for mode, t in bench_ms.items()}
@@ -1614,7 +2078,8 @@ def main(argv) -> int:
     rows = (
         ("raster_binned", ("rasterize_binned",), entry["rasterize_binned"],
          "androidrenderer_tpu/ops/raster/raster_binned.py:63",
-         dict(bench_raster_ms=bench("binned8"))),
+         dict(bench_raster_ms=bench("binned8"),
+              **{f"band_peel_{k}": band["peel"][k] for k in BAND_KEYS})),
         ("raster_fused", ("rasterize_fused", "rasterize_hybrid"), fused,
          "androidrenderer_tpu/ops/raster/raster_fused.py:99",
          dict(hybrid_ms=hybrid["ms"], hybrid_kernel_ms=hybrid["kernel_ms"],
@@ -1632,7 +2097,7 @@ def main(argv) -> int:
          dict(cascade(subfold_csm), bench_raster_ms=bench("subfold"))),
     )
     errs = {"raster_fused": hybrid["err"], "raster_lanes": lanes_csm["err"],
-            "raster_subfold": subfold_csm["err"]}
+            "raster_subfold": subfold_csm["err"], "raster_binned": band["peel"]["err"]}
     for name, names, r, replaces, extra in rows:
         kernels.append(dict(
             name=name, route="cuda", source="androidrenderer_tpu_torch/csrc/raster.cu",
@@ -1647,7 +2112,7 @@ def main(argv) -> int:
     kernels.append(dict(
         name="traverse", route="cuda", source="androidrenderer_tpu_torch/csrc/traverse.cu",
         replaces="androidrenderer_tpu/ops/rt/traverse.py:190", launches=launched("trace_rays"),
-        max_abs_err=max(r["err"] for r in rt_sites.values()), ms=shadow["ms"],
+        max_abs_err=max(refit["err"], *(r["err"] for r in rt_sites.values())), ms=shadow["ms"],
         kernel_ms=shadow["kernel_ms"], plain_ms=shadow["plain_ms"], bound_ms=shadow["bound_ms"],
         bound_by=shadow["bound_by"], library_ms=None,  # no PyTorch call traverses a BVH
         # ms, kernel_ms and bound_ms cover every ray of the site; plain_ms the subset.
@@ -1655,6 +2120,10 @@ def main(argv) -> int:
         **{f"{site}_{k}": rt_sites[site][k]
            for site in ("rtao", "primary", "rtgi", "rtgi_shadow", "peel", "probe", "probe_shadow")
            for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "rays")},
+        **{f"refit_shadow_{k}": refit[k]
+           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "rays")},
+        dynamic_update_ms=refit["update_ms"], dynamic_refit_ms=refit["refit_ms"],
+        dynamic_frame_ms=refit["frame_ms"],
     ))
     print(f"chip_smoke: {time.perf_counter() - started:.1f} s from the card's check to the "
           f"results")

@@ -20,7 +20,10 @@ counts, and the masked any-hit rule of the exact alpha peel; its wrapper's
 checks, the exact peel on the card against the CPU, and the RT, RTGI and probe
 frames' launches at 128^2. The rasterizer is also held bit-equal at VRSAA's
 3840x2176 main view, and the VRSAA frame's launches and dropped count are
-checked against the CPU frame's at 128^2:
+checked against the CPU frame's at 128^2. The band raster (``row_offset``) is
+held bit-equal to the plain version and to the full frame's rows, the refit
+(scene/dynamic.py) on the card to the refit on the CPU, and the collectives of
+two gloo ranks sharing the card to their exact bits:
 
     python -m pytest --noconftest -q tests/test_torch_kernels.py -m cuda \
         -k 'traverse or rt_frame or peel or gi_frame'
@@ -710,3 +713,100 @@ def test_vrsaa_frame_on_the_card(cuda_device):
     assert torch.equal(outs["cuda"].depth.cpu(), outs["cpu"].depth)
     img = {k: o.image.cpu().numpy().astype(int) for k, o in outs.items()}
     assert np.abs(img["cuda"] - img["cpu"]).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bands", [2, 4])
+def test_band_raster_kernel_matches_plain_and_full_rows(cuda_device, bands):
+    """The kernel with ``row_offset`` at every band: bit-equal to the plain
+    version's band and to those rows of the full-frame kernel output, with the
+    alpha grid, depth only, and under a z limit."""
+    scene, _ = alpha_test_scene().build(device=cuda_device)
+    w, h = 128, 96
+    cam = Camera(fov_degrees=75.0, aspect=w / h, render_resolution=(w, h))
+    cam.set_position([0.0, 1.0, -3.0])
+    clip = transform_to_clip(scene.positions,
+                             torch.from_numpy(cam.view_data().view_proj).to(cuda_device))
+    setup = triangle_setup(clip, scene.tri_indices, w, h,
+                           double_sided=scene.tri_double_sided, tri_valid=scene.tri_valid)
+    first, _ = rasterize(setup, h, w)
+    zl = torch.where(first > 0, first * 0.999, torch.full_like(first, float("inf")))
+    b = h // bands
+    for kw in (dict(alpha_grid=scene.tri_alpha_grid), dict(depth_only=True), dict(z_limit=zl)):
+        full = rasterize(setup, h, w, **kw)
+        full = full if isinstance(full, tuple) else (full,)
+        for i in range(bands):
+            rows = slice(i * b, (i + 1) * b)
+            band_kw = dict(kw, row_offset=i * b)
+            if "z_limit" in kw:
+                band_kw["z_limit"] = zl[rows].contiguous()
+            got = rasterize(setup, b, w, **band_kw)
+            _assert_bit_equal(got, rasterize_reference(setup, b, w, **band_kw))
+            _assert_bit_equal(got, tuple(f[rows] for f in full))
+
+
+@pytest.mark.cuda
+def test_refit_on_the_card_equals_the_cpu(cuda_device):
+    """update_primitive_transforms on the card against the CPU on the courtyard:
+    positions, bounds, corner tables and every BVH tensor bit-equal, normals
+    and tangents within 1e-6; a ray through a lifted column follows it."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import occlusion
+    from androidrenderer_tpu_torch.scene import dynamic
+    from androidrenderer_tpu_torch.scene.scene import scene_arrays_from_numpy
+
+    rs = courtyard_scene()
+    leaves, _ = rs.bake()
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene = scene_arrays_from_numpy(leaves, dev)
+        dyn = dynamic.make_dynamic_data(rs, scene)
+        tr = dynamic.initial_transforms(rs, dev)
+        tr[5, 1, 3] += 6.0  # the first column (y 0-5 m at x = -10.5, z = -6), up 6 m
+        tr[6, :3, :3] = tr[6, :3, :3] * 1.5
+        out[dev.type] = moved = dynamic.update_primitive_transforms(scene, dyn, tr)
+        o = torch.tensor([[-11.5, 2.5, -6.0], [-11.5, 8.5, -6.0]], device=dev)
+        d = torch.tensor([[1.0, 0.0, 0.0]] * 2, device=dev)
+        hit = occlusion(moved.bvh, o, d, 1e-3, 1.5).cpu()
+        assert not hit[0] and hit[1]
+    card, host = out["cuda"], out["cpu"]
+
+    def bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    for name in ("positions", "prim_bounds", "tri_corner_pos"):
+        assert torch.equal(bits(getattr(card, name)).cpu(), bits(getattr(host, name))), name
+    for name in card.bvh._fields:
+        assert torch.equal(bits(getattr(card.bvh, name)).cpu(), bits(getattr(host.bvh, name))), name
+    for name in ("normals", "tangents", "tri_attr_corners"):
+        assert (getattr(card, name).cpu() - getattr(host, name)).abs().max().item() <= 1e-6
+
+
+def _card_collectives(group, device):
+    from androidrenderer_tpu_torch.parallel import collectives as coll
+
+    rank, n = coll.band_index(group)
+    full = torch.arange(8 * 3 * 2, dtype=torch.float32).reshape(8, 3, 2) - 20.0
+    full[2, 1, 0] = -0.0
+    x = full[rank * 4:(rank + 1) * 4].to(device)
+    got = dict(gather=coll.gather_rows(x, group), halo=coll.row_halo(x, 2, group, wrap=True),
+               edge=coll.row_halo(x, 6, group, wrap=False),
+               any=coll.any_across(torch.tensor([rank == 0, False, rank == 1], device=device),
+                                   group))
+    assert all(v.device == device for v in got.values())
+    return {k: v.cpu() for k, v in got.items()} if rank == 0 else None
+
+
+@pytest.mark.cuda
+def test_collectives_on_the_card_with_gloo(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card: the collectives of CUDA tensors stay on
+    the card and give rank 0 the exact bits (-0.0 included)."""
+    from androidrenderer_tpu_torch.parallel.mesh import run_ranks
+
+    got = run_ranks(2, _card_collectives, device="cuda", backend="gloo",
+                    init_file=str(tmp_path / "store"))
+    full = torch.arange(8 * 3 * 2, dtype=torch.float32).reshape(8, 3, 2) - 20.0
+    full[2, 1, 0] = -0.0
+    assert torch.equal(got["gather"].view(torch.int32), full.view(torch.int32))
+    assert torch.equal(got["halo"], torch.cat([full[-2:], full[:4], full[4:6]]))
+    assert torch.equal(got["edge"], full[[0] * 6 + [0, 1, 2, 3] + [4, 5, 6, 7, 7, 7]])
+    assert got["any"].tolist() == [True, False, True]

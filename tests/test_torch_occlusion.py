@@ -142,12 +142,34 @@ def test_occlusion_footprint_covers_the_aabb():
 
 
 def test_band_arguments_raise(courtyard):
-    _, scene, vd, depth = courtyard
-    hiz = culling.build_hiz_pyramid(depth, LEVELS)
-    with pytest.raises(NotImplementedError):
-        culling.occlusion_cull_spheres(
-            scene.prim_bounds, torch.from_numpy(vd.view), 0.05, 1.0, 1.0, hiz, row_offset=32,
-        )
+    """The band arguments, which raised until band rendering was ported: a
+    band's test (rows [16, 32) of the 128^2 view, its own pyramid) culls no
+    sphere with a pixel in the band, and culls the spheres whose AABB misses
+    it exactly as JAX's band test does (with an empty pyramid every sphere
+    passes the depth test, so both keep just the spheres that meet the band)."""
+    jscene, scene, vd, depth = courtyard
+    view = torch.from_numpy(vd.view)
+    args = (view, float(vd.z_near), float(vd.projection[0, 0]), float(vd.projection[1, 1]))
+    kw = dict(row_offset=16, full_height=N)
+    keep = culling.occlusion_cull_spheres(
+        scene.prim_bounds, *args, culling.build_hiz_pyramid(depth[16:32], 4), **kw)
+    setup = triangle_setup_corners(
+        scene.tri_corner_pos, torch.from_numpy(vd.view_proj), N, N,
+        double_sided=scene.tri_double_sided, tri_valid=scene.tri_valid,
+    )
+    _, vis = rasterize(setup, N, N)
+    band = vis[16:32]
+    shown = torch.zeros_like(keep)
+    shown[scene.tri_primitive[band[band >= 0]].long()] = True
+    assert shown.any() and not (~keep & shown).any()
+    empty = culling.build_hiz_pyramid(torch.zeros(16, N), 4)
+    ours = culling.occlusion_cull_spheres(scene.prim_bounds, *args, empty, **kw).numpy()
+    theirs = np.asarray(jax_culling.occlusion_cull_spheres(
+        jscene.prim_bounds, jnp.asarray(vd.view), *args[1:],
+        [jnp.asarray(x.numpy()) for x in empty], **kw))
+    valid = scene.prim_valid.numpy()
+    assert np.array_equal(ours[valid], theirs[valid])
+    assert 0 < ours[valid].sum() < valid.sum()
 
 
 def _occluder_scene() -> RenderScene:

@@ -116,6 +116,99 @@ def test_numpy_modules_are_copies(rel):
     assert _strip_imports(ours) == theirs
 
 
+def _tool_code(text: str) -> list:
+    """A tool's non-blank code lines without its module docstring (the usage
+    line names the module it runs as) and without the repository tools'
+    ``sys.path`` line, which points at one checkout, and its ``import sys``;
+    the port's tools run with ``python -m``."""
+    text = text[text.index('"""', 3) + 3:]
+    return [line for line in text.splitlines()
+            if line.strip() and line != "import sys" and not line.startswith("sys.path.insert(")]
+
+
+@pytest.mark.parametrize("name", ["make_ktx2", "optimize_gltf"])
+def test_asset_tools_are_copies(name):
+    """The asset tools are the repository's tools/ copies: the same code with
+    the port's imports, past the two differences ``_tool_code`` removes."""
+    ours = (REPO / "androidrenderer_tpu_torch" / "tools" / f"{name}.py").read_text()
+    theirs = (REPO / "tools" / f"{name}.py").read_text()
+    assert _tool_code(_strip_imports(ours)) == _tool_code(theirs)
+
+
+def _png_gltf(tmp_path) -> Path:
+    """A one-quad glTF with two PNG textures (20 x 12 and 8 x 8) and its
+    buffer in a data URI."""
+    import base64
+    import json
+
+    from PIL import Image
+
+    rng = np.random.default_rng(21)
+    for name, (h, w) in (("base", (12, 20)), ("mr", (8, 8))):
+        img = rng.integers(0, 256, (h, w, 4)).astype(np.uint8)
+        Image.fromarray(img).save(tmp_path / f"{name}.png")
+    pos = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]], np.float32)
+    uv = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    idx = np.array([0, 1, 2, 0, 2, 3], np.uint16)
+    buf = pos.tobytes() + uv.tobytes() + idx.tobytes()
+    doc = {
+        "asset": {"version": "2.0"}, "scene": 0, "scenes": [{"nodes": [0]}],
+        "nodes": [{"mesh": 0}],
+        "meshes": [{"primitives": [{"attributes": {"POSITION": 0, "TEXCOORD_0": 1},
+                                    "indices": 2, "material": 0}]}],
+        "materials": [{"pbrMetallicRoughness": {"baseColorTexture": {"index": 0},
+                                                "metallicRoughnessTexture": {"index": 1}}}],
+        "textures": [{"source": 0}, {"source": 1}],
+        "images": [{"uri": "base.png", "mimeType": "image/png"},
+                   {"uri": "mr.png", "mimeType": "image/png"}],
+        "buffers": [{"byteLength": len(buf), "uri": "data:application/octet-stream;base64,"
+                     + base64.b64encode(buf).decode()}],
+        "bufferViews": [{"buffer": 0, "byteOffset": 0, "byteLength": 48},
+                        {"buffer": 0, "byteOffset": 48, "byteLength": 32},
+                        {"buffer": 0, "byteOffset": 80, "byteLength": 12}],
+        "accessors": [
+            {"bufferView": 0, "componentType": 5126, "count": 4, "type": "VEC3",
+             "min": [-1, -1, 0], "max": [1, 1, 0]},
+            {"bufferView": 1, "componentType": 5126, "count": 4, "type": "VEC2"},
+            {"bufferView": 2, "componentType": 5123, "count": 6, "type": "SCALAR"},
+        ],
+    }
+    path = tmp_path / "quad.gltf"
+    path.write_text(json.dumps(doc))
+    return path
+
+
+def test_asset_tools_write_the_jax_tools_bytes(tmp_path):
+    """optimize_gltf (UASTC, textures resized to 16^2) and make_ktx2 (ETC1S)
+    of the port, run with ``python -m``, write the same files byte for byte as
+    the repository's tools/ run by path, on a glTF with PNG textures."""
+    import os
+    import subprocess
+    import sys
+
+    src = _png_gltf(tmp_path)
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    runs = {
+        "jax": [[sys.executable, str(REPO / "tools" / "optimize_gltf.py")],
+                [sys.executable, str(REPO / "tools" / "make_ktx2.py")]],
+        "port": [[sys.executable, "-m", "androidrenderer_tpu_torch.tools.optimize_gltf"],
+                 [sys.executable, "-m", "androidrenderer_tpu_torch.tools.make_ktx2"]],
+    }
+    for side, (opt, mk) in runs.items():
+        out = tmp_path / side
+        for cmd in (opt + [str(src), "-o", str(out), "--max-size", "16", "--format", "uastc"],
+                    mk + [str(tmp_path / "base.png"), "-o", str(out / "base.ktx2"),
+                          "--format", "etc1s"]):
+            proc = subprocess.run(cmd, cwd=REPO, env=env, capture_output=True, text=True,
+                                  timeout=120)
+            assert proc.returncode == 0, proc.stderr[-2000:]
+    names = sorted(p.name for p in (tmp_path / "jax").iterdir())
+    assert names == sorted(p.name for p in (tmp_path / "port").iterdir())
+    assert {"quad.gltf", "quad.bin", "quad_img0.ktx2", "quad_img1.ktx2", "base.ktx2"} <= set(names)
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes()
+
+
 _BLOCKED = ("jax", "jaxlib", "androidrenderer_tpu", "tools", "raster_touch", "raster_lanes",
             "raster_subfold", "microbench_pallas_gather", "bench_raster")
 
@@ -135,7 +228,9 @@ for name in ("ops.gather", "ops.cuda_build", "ops.raster.binning", "ops.raster.r
              "tools.experiments.raster_subfold", "tools.kernel_timing", "tools.raster_cuts",
              "ops.sh", "ops.lpv", "ops.upsample", "ops.taa", "ops.vrsaa", "ops.interpolation",
              "ops.visualize", "app.cvars", "app.application", "app.headless", "utils.image",
-             "utils.bitstream", "scene.uastc", "scene.basis_lz", "scene.ktx2", "scene.gltf"):
+             "utils.bitstream", "scene.uastc", "scene.basis_lz", "scene.ktx2", "scene.gltf",
+             "scene.dynamic", "parallel.collectives", "parallel.mesh", "parallel.dryrun",
+             "tools.make_ktx2", "tools.optimize_gltf"):
     assert "androidrenderer_tpu_torch." + name in sys.modules, name
 from androidrenderer_tpu_torch.camera import Camera
 from androidrenderer_tpu_torch.config import RenderParams, default_frame_config
@@ -196,7 +291,9 @@ def test_package_sources_import_no_jax():
         "ops/sh.py", "ops/lpv.py", "ops/upsample.py", "ops/taa.py", "ops/vrsaa.py",
         "ops/interpolation.py", "ops/visualize.py", "app/cvars.py", "app/application.py",
         "app/headless.py", "utils/image.py", "utils/bitstream.py", "scene/uastc.py",
-        "scene/basis_lz.py", "scene/ktx2.py", "scene/gltf.py",
+        "scene/basis_lz.py", "scene/ktx2.py", "scene/gltf.py", "scene/dynamic.py",
+        "parallel/__init__.py", "parallel/collectives.py", "parallel/mesh.py",
+        "parallel/dryrun.py", "tools/make_ktx2.py", "tools/optimize_gltf.py",
     } <= names
     for path in [*sources, REPO / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
