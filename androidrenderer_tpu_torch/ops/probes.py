@@ -34,7 +34,7 @@ from androidrenderer_tpu_torch.ops import sky as sky_ops
 from androidrenderer_tpu_torch.ops import texture as tex
 from androidrenderer_tpu_torch.ops.octahedral import dir_to_oct_uv, oct_texel_directions
 from androidrenderer_tpu_torch.ops.post import srgb_to_linear
-from androidrenderer_tpu_torch.ops.rt.traverse import DeviceBVH, occlusion, trace_rays
+from androidrenderer_tpu_torch.ops.rt.traverse import SCATTERED, DeviceBVH, occlusion, trace_rays
 from androidrenderer_tpu_torch.parallel.collectives import assemble, band_index
 
 IRR_RES = 13  # irradiance octahedral resolution (reference light cache 13x13)
@@ -160,10 +160,13 @@ def _shade_hits(scene, bvh, o, d, hits, sun_exposure, masked, use_textures):
     # Sun occlusion only matters where the probe ray hit geometry.
     hit = hits.slot >= 0
     sun_dirs = to_sun.expand(hp.shape).contiguous()  # the kernel reads (R, 3) rows
+    scattered = SCATTERED["probe_sun"]
     if masked:
-        occ = occlusion_masked(bvh, scene, hp + hn * 0.02, sun_dirs, 0.01, 1e30, active=hit)
+        occ = occlusion_masked(bvh, scene, hp + hn * 0.02, sun_dirs, 0.01, 1e30, active=hit,
+                               scattered=scattered)
     else:
-        occ = occlusion(bvh, hp + hn * 0.02, sun_dirs, 0.01, 1e30, active=hit)
+        occ = occlusion(bvh, hp + hn * 0.02, sun_dirs, 0.01, 1e30, active=hit,
+                        scattered=scattered)
     li = (albedo / math.pi * scene.sun_color[None, :] * sun_exposure
           * (ndotl * torch.where(occ, 0.0, 1.0))[:, None] + emission * sun_exposure)
     sky_lut = sky_ops.build_sky_view_lut(sun)
@@ -257,12 +260,13 @@ def update_probes(
             return torch.cat([x[ci * per:(ci + 1) * per] for ci in owned])
 
         o, d = rays(plan.origins), rays(plan.directions)
+        scattered = SCATTERED["probe_rays"]
         if masked:
             from androidrenderer_tpu_torch.ops.rt.effects import trace_rays_masked
 
-            hits = trace_rays_masked(bvh, scene, o, d, 0.01, 1e30)
+            hits = trace_rays_masked(bvh, scene, o, d, 0.01, 1e30, scattered=scattered)
         else:
-            hits = trace_rays(bvh, o, d, 0.01, 1e30)
+            hits = trace_rays(bvh, o, d, 0.01, 1e30, scattered=scattered)
         radiance = _shade_hits(scene, bvh, o, d, hits, sun_exposure, masked, use_textures)
         clamp_d = rays(plan.clamp_d)
         # Per-cascade miss/clamp distance (spacing * 4).

@@ -36,7 +36,9 @@ from androidrenderer_tpu_torch.ops import sky as sky_ops
 from androidrenderer_tpu_torch.ops import texture as tex
 from androidrenderer_tpu_torch.ops.brdf import brdf
 from androidrenderer_tpu_torch.ops.post import srgb_to_linear
-from androidrenderer_tpu_torch.ops.rt.traverse import DeviceBVH, Hits, occlusion, trace_rays
+from androidrenderer_tpu_torch.ops.rt.traverse import (
+    SCATTERED, DeviceBVH, Hits, occlusion, trace_rays,
+)
 
 RAY_EPS = 0.01  # TMin (rtao.comp.slang)
 ALPHA_PEELS = 4  # re-trace budget of the exact alpha peel (IgnoreHit emulation)
@@ -101,7 +103,8 @@ def _live(active, r: int, device) -> torch.Tensor:
 
 
 def trace_rays_masked(bvh, scene, origins, directions, tmin, tmax,
-                      peels: int = ALPHA_PEELS, active=None, use_bitmap: bool = True) -> Hits:
+                      peels: int = ALPHA_PEELS, active=None, use_bitmap: bool = True,
+                      scattered: bool = False) -> Hits:
     """Closest-hit trace honouring alpha-masked geometry.
 
     Default (``use_bitmap``): ONE trace with the in-traversal 16x16 barycentric
@@ -110,10 +113,11 @@ def trace_rays_masked(bvh, scene, origins, directions, tmin, tmax,
     are ignored and the ray re-traced past them, at ``peels`` full traversals;
     rays still unresolved after ``peels`` masked layers take the last hit as
     opaque. The exact path's ``steps``/``overflow``/``ray_steps`` sum its
-    traces (longest walk of any trace, any overflow, each ray's total)."""
+    traces (longest walk of any trace, any overflow, each ray's total).
+    ``scattered`` as in ``trace_rays``."""
     if use_bitmap:
         return trace_rays(bvh, origins, directions, tmin, tmax, active=active,
-                          alpha_bitmap_test=True)
+                          alpha_bitmap_test=True, scattered=scattered)
     _require_scene(scene)
     dev, r = origins.device, origins.shape[0]
     t0 = _ray_tmin(tmin, r, dev)
@@ -124,7 +128,8 @@ def trace_rays_masked(bvh, scene, origins, directions, tmin, tmax,
     res_v = torch.zeros(r, dtype=torch.float32, device=dev)
     steps, overflow, ray_steps = [], [], []
     for p in range(peels):
-        hits = trace_rays(bvh, origins, directions, t0, tmax, active=unresolved)
+        hits = trace_rays(bvh, origins, directions, t0, tmax, active=unresolved,
+                          scattered=scattered)
         steps.append(hits.steps)
         overflow.append(hits.overflow)
         ray_steps.append(hits.ray_steps)
@@ -143,18 +148,18 @@ def trace_rays_masked(bvh, scene, origins, directions, tmin, tmax,
 
 
 def occlusion_masked(bvh, scene, origins, directions, tmin, tmax, peels: int = ALPHA_PEELS,
-                     active=None, use_bitmap: bool = True) -> torch.Tensor:
+                     active=None, use_bitmap: bool = True, scattered: bool = False) -> torch.Tensor:
     """(R,) bool any-hit occlusion with alpha-masked geometry.
 
     Default (``use_bitmap``): ONE any-hit trace where masked slots only hit
     through their baked 16x16 alpha bitmap (``scene`` is not read). The exact
     path (``use_bitmap=False``): rays park on opaque hits (the traversal's
     ``masked_any_hit``); a masked hit alpha-tests the texture and re-traces
-    past itself, up to ``peels`` traversals."""
+    past itself, up to ``peels`` traversals. ``scattered`` as in ``trace_rays``."""
     dev, r = origins.device, origins.shape[0]
     if use_bitmap:
         hits = trace_rays(bvh, origins, directions, tmin, tmax, any_hit=True, active=active,
-                          alpha_bitmap_test=True)
+                          alpha_bitmap_test=True, scattered=scattered)
         return hits.slot >= 0 if active is None else (hits.slot >= 0) & active
     _require_scene(scene)
     # Per-slot opacity, as baked into the node rows for the park test.
@@ -164,7 +169,7 @@ def occlusion_masked(bvh, scene, origins, directions, tmin, tmax, peels: int = A
     live = _live(active, r, dev)
     for _ in range(peels):
         hits = trace_rays(bvh, origins, directions, t0, tmax, any_hit=True, active=live,
-                          masked_any_hit=True)
+                          masked_any_hit=True, scattered=scattered)
         hit = (hits.slot >= 0) & live
         opaque = hit & slot_opaque[hits.slot.clamp(min=0).long()]
         ok = _hit_alpha_passes(scene, bvh, hits)
@@ -211,10 +216,11 @@ def rt_sun_shadows(
     h, w, _ = world_position.shape
     o, d = sun_shadow_rays(world_position, normal, sun_direction, sun_tan_size, frame_index,
                            row_offset)
+    scattered = SCATTERED["rt_shadow"]
     if masked:
-        occ = occlusion_masked(bvh, scene, o, d, RAY_EPS, 1e30)
+        occ = occlusion_masked(bvh, scene, o, d, RAY_EPS, 1e30, scattered=scattered)
     else:
-        occ = occlusion(bvh, o, d, RAY_EPS, 1e30)
+        occ = occlusion(bvh, o, d, RAY_EPS, 1e30, scattered=scattered)
     occ = occ.reshape(h, w) & valid
     return torch.where(occ, 0.0, 1.0)[..., None]
 
@@ -238,9 +244,10 @@ def rtao(
     for s in range(num_samples):
         d = rtao_directions(normal, frame_index, num_samples, s, row_offset)
         if masked:
-            occ = occlusion_masked(bvh, scene, o, d, RAY_EPS, max_distance)
+            occ = occlusion_masked(bvh, scene, o, d, RAY_EPS, max_distance,
+                                   scattered=SCATTERED["rtao"])
         else:
-            occ = occlusion(bvh, o, d, RAY_EPS, max_distance)
+            occ = occlusion(bvh, o, d, RAY_EPS, max_distance, scattered=SCATTERED["rtao"])
         vis = vis + torch.where(occ, 0.0, 1.0)
     ao = (vis / num_samples).reshape(h, w)
     return torch.where(valid, ao, 1.0)[..., None]
@@ -329,9 +336,10 @@ def rtgi(
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     for b in range(num_bounces):
         if masked:
-            hits = trace_rays_masked(bvh, scene, o, d, RAY_EPS, 1e30, active=alive)
+            hits = trace_rays_masked(bvh, scene, o, d, RAY_EPS, 1e30, active=alive,
+                                     scattered=SCATTERED["rtgi_rays"])
         else:
-            hits = trace_rays(bvh, o, d, RAY_EPS, 1e30)
+            hits = trace_rays(bvh, o, d, RAY_EPS, 1e30, scattered=SCATTERED["rtgi_rays"])
         hit = (hits.slot >= 0) & alive
         tri, idx = _hit_tris(scene, bvh, hits)
         hp, hn, front = hit_geometry(scene, bvh, o, d, hits)
@@ -341,9 +349,10 @@ def rtgi(
         sun_dirs = to_sun.expand(hp.shape).contiguous()  # the kernel reads (R, 3) rows
         if masked:
             sh_occ = occlusion_masked(bvh, scene, hp + hn * 0.02, sun_dirs, RAY_EPS, 1e30,
-                                      active=hit & front)
+                                      active=hit & front, scattered=SCATTERED["rtgi_sun"])
         else:
-            sh_occ = occlusion(bvh, hp + hn * 0.02, sun_dirs, RAY_EPS, 1e30)
+            sh_occ = occlusion(bvh, hp + hn * 0.02, sun_dirs, RAY_EPS, 1e30,
+                               scattered=SCATTERED["rtgi_sun"])
         fd = brdf(albedo, hn, metal[:, None], rough[:, None], sun_dirs, -d, diffuse_only=True)
         sun_li = (fd * scene.sun_color[None, :] * (ndotl * torch.where(sh_occ, 0.0, 1.0))[:, None]
                   * sun_exposure)

@@ -12,11 +12,17 @@ The port of the JAX package's ops/rt/traverse.py. There the walk is a lockstep
 ``lax.while_loop`` over all rays (``_phase``, not Pallas) with a ray-compaction
 schedule between stages that exists only because the TPU runs rays in
 lockstep; its result does not depend on that schedule. Here ``trace_rays``
-launches ``csrc/traverse.cu`` (one thread per ray) for CUDA tensors and runs
-``trace_rays_reference`` for CPU tensors; there is no fallback from one to the
-other. Both compute JAX's step op for op, each product, sum and quotient
-rounded on its own (no FMA contraction), so the kernel, the plain version and
-the JAX walk run op by op agree bit for bit (tests/test_torch_rt.py).
+launches ``csrc/traverse.cu`` (persistent warps that refill their idle lanes
+with the next rays) for CUDA tensors and runs ``trace_rays_reference`` for CPU
+tensors; there is no fallback from one to the other. The kernel reads the
+BVH's kernel layout (``kernel_layout``: aligned node headers, lookahead lines
+and slot-indexed leaf data, exact copies of ``node_rows``' words), which is
+built beside the rows where a BVH reaches its device (the upload,
+scene.py::scene_arrays_from_numpy) and where it changes (the refit,
+dynamic.py::refit_bvh), by ``with_kernel_layout``; the plain version reads
+``node_rows``. Both compute JAX's step op for op, each product, sum and
+quotient rounded on its own (no FMA contraction), so the kernel, the plain
+version and the JAX walk run op by op agree bit for bit (tests/test_torch_rt.py).
 
 One behaviour of JAX's arrays is made explicit: XLA's CPU backend and the TPU
 flush subnormal floats to zero, so a ray component below 2^-126 is zero there
@@ -59,12 +65,41 @@ FLT_MIN = 2.0 ** -126
 
 _vp, _ci, _cf = c_void_p, c_int, c_float
 LIBRARY = Library("traverse.cu", {
-    # rows, m, origins, directions, r, tmin (ray, all), tmax (ray, all), active,
-    # any_hit, masked_any_hit, bitmap, max_steps, t, slot, u, v, steps, steps_max,
-    # overflow, work, touched, stream
-    "traverse_launch": [_vp, _ci, _vp, _vp, _ci, _vp, _cf, _vp, _cf, _vp, _ci, _ci, _ci, _ci,
-                        _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp],
+    # header, lookahead, slot block, slot alpha, m, origins, directions, r, tmin (ray,
+    # all), tmax (ray, all), active, any_hit, masked_any_hit, bitmap, max_steps,
+    # scattered, t, slot, u, v, steps, steps_max, overflow, counter, work, touched, stream
+    "traverse_launch": [_vp, _vp, _vp, _vp, _ci, _vp, _vp, _ci, _vp, _cf, _vp, _cf, _vp, _ci,
+                        _ci, _ci, _ci, _ci, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp,
+                        _vp],
+    # any_hit, masked_any_hit, bitmap, counts -> registers per thread, resident
+    # blocks per SM, SMs
+    "traverse_occupancy": [_ci, _ci, _ci, _ci, _vp, _vp, _vp],
 })
+
+# The kernel's layout of a BVH (``kernel_layout``), int32 words; the float fields
+# travel as their f32 bits. Per node: a HEADER of 8 words (32 B, one sector):
+# min xyz, max xyz, miss link, first slot (-1 = inner); a LOOKAHEAD of 32 words
+# (128 B, one line): the 4 target ids (-1 = none), their boxes coordinate-major
+# (min x of the 4 targets, then min y, ..., max z), and 4 words of 0.
+# Per slot (a leaf owns slots first .. first + 3): a BLOCK of 12 words (48 B):
+# v0 xyz, the leaf's slot count | e1 xyz, the opaque flag | e2 xyz, 0; and its 8
+# ALPHA words. Slots of no leaf are zero.
+HEADER_WORDS, LOOKAHEAD_WORDS, SLOT_WORDS, ALPHA_WORDS = 8, 32, 12, 8
+# How the kernel keeps each call site's warps busy, as measured in turns at
+# every site (PERF.md, the traversal's findings): True for scattered rays, whose
+# warps refill their idle lanes with the next rays once 8 are idle (the
+# kernel's kRefillAt), False for coherent rays, whose warps take a new batch
+# only when all their lanes are idle. csrc/traverse.cu says why. The result
+# does not depend on it.
+SCATTERED = {
+    "rt_shadow": False,  # sun rays from the camera's pixels
+    "primary": False,  # camera rays
+    "rtao": True,  # cosine-distributed AO rays
+    "rtgi_rays": True,  # cosine-distributed GI rays
+    "rtgi_sun": True,  # sun rays from the GI rays' scattered hits
+    "probe_rays": True,  # rays every way from each probe
+    "probe_sun": False,  # a probe's consecutive rays' sun rays: near, one direction
+}
 
 # The kernel's per-ray work counts (scratch ``work``, (R, 6) i32), in order:
 # steps, leaf and inner nodes whose box the ray hit, the lookahead targets an
@@ -76,7 +111,10 @@ WORK_COUNTS = ("steps", "leaf_visits", "inner_visits", "lookahead_targets",
 
 
 class DeviceBVH(NamedTuple):
-    """Device-side BVH + slot-ordered triangle data (built in scene.bake)."""
+    """Device-side BVH + slot-ordered triangle data (built in scene.bake), and
+    the kernel's layout of its rows (``with_kernel_layout``; None where it was
+    not built, as in the bake's host copy: the plain version reads
+    ``node_rows`` only, the kernel raises)."""
 
     node_min: torch.Tensor  # (M, 3) f32
     node_max: torch.Tensor  # (M, 3) f32
@@ -88,6 +126,57 @@ class DeviceBVH(NamedTuple):
     slot_e1: torch.Tensor  # (S, 3)
     slot_e2: torch.Tensor  # (S, 3)
     node_rows: torch.Tensor  # (M, NODE_ROW_CHANNELS) f32 packed traversal rows
+    node_header: torch.Tensor | None = None  # (M, HEADER_WORDS) i32
+    node_lookahead: torch.Tensor | None = None  # (M, LOOKAHEAD_WORDS) i32
+    slot_block: torch.Tensor | None = None  # (S, SLOT_WORDS) i32
+    slot_alpha: torch.Tensor | None = None  # (S, ALPHA_WORDS) i32
+
+
+# The fields of the JAX package's DeviceBVH (the bake's ``bvh.<field>`` leaves),
+# and those of the kernel's layout, which are made from them.
+BVH_FIELDS = DeviceBVH._fields[:10]
+LAYOUT_FIELDS = DeviceBVH._fields[10:]
+
+
+def kernel_layout(node_rows: torch.Tensor, n_slots: int) -> dict:
+    """The kernel's layout of ``node_rows`` (the layout above) for a BVH of
+    ``n_slots`` slots, as ``DeviceBVH`` fields: exact copies of the rows' words,
+    the integer links converted (f32-exact below 2^24), on the rows' device.
+    Only leaf rows (first >= 0) give slot blocks: an inner row's slot columns
+    are clamped copies that the walk never reads."""
+    m = node_rows.shape[0]
+    if n_slots % LEAF_SIZE:
+        raise ValueError(f"{n_slots} slots: a leaf owns {LEAF_SIZE} slots, so S is a multiple")
+    rows = node_rows.to(torch.float32).contiguous()
+    words = rows.view(torch.int32)
+    links = rows[:, 6:9].to(torch.int32)  # miss, first, count
+    first = links[:, 1]
+    header = torch.cat([words[:, 0:6], links[:, 0:2]], dim=1)
+    ids = rows[:, LOOK0:LOOK0 + 4].to(torch.int32)
+    boxes = words[:, LOOK0 + 4:LOOK0 + 28].reshape(m, 4, 6).transpose(1, 2).reshape(m, 24)
+    pad = torch.zeros((m, LOOKAHEAD_WORDS - 28), dtype=torch.int32, device=rows.device)
+    lookahead = torch.cat([ids, boxes, pad], dim=1)
+    tri = words[:, SLOT0:OPQ0].reshape(m, LEAF_SIZE, 3, 3)
+    per_slot = [links[:, 2, None, None].expand(m, LEAF_SIZE, 1),
+                words[:, OPQ0:GRID0].reshape(m, LEAF_SIZE, 1),
+                torch.zeros((m, LEAF_SIZE, 1), dtype=torch.int32, device=rows.device)]
+    block = torch.cat([torch.cat([tri[:, :, j], per_slot[j]], dim=2) for j in range(3)], dim=2)
+    alpha = words[:, GRID0:LOOK0].reshape(m, LEAF_SIZE, ALPHA_WORDS)
+    # Inner rows land in LEAF_SIZE spare slots past the end, dropped after.
+    dest = (torch.where(first >= 0, first, n_slots)[:, None]
+            + torch.arange(LEAF_SIZE, device=rows.device)).reshape(-1).long()
+    out = {}
+    for name, src, width in (("slot_block", block, SLOT_WORDS), ("slot_alpha", alpha, ALPHA_WORDS)):
+        table = torch.zeros((n_slots + LEAF_SIZE, width), dtype=torch.int32, device=rows.device)
+        table[dest] = src.reshape(-1, width)
+        out[name] = table[:n_slots].contiguous()
+    return dict(node_header=header.contiguous(), node_lookahead=lookahead.contiguous(), **out)
+
+
+def with_kernel_layout(bvh: DeviceBVH) -> DeviceBVH:
+    """``bvh`` with the kernel's layout built from its ``node_rows``, on their
+    device (the upload and the refit call this)."""
+    return bvh._replace(**kernel_layout(bvh.node_rows, bvh.slot_tri.shape[0]))
 
 
 def pack_node_rows(
@@ -246,6 +335,7 @@ def trace_rays(
     active: torch.Tensor | None = None,  # (R,) bool: inactive rays report a miss
     alpha_bitmap_test: bool = False,  # in-traversal 16x16 barycentric alpha test
     masked_any_hit: bool = False,  # any-hit parks only on OPAQUE hits (see below)
+    scattered: bool = False,  # the kernel's refill policy: SCATTERED[<call site>]
 ) -> Hits:
     """Closest-hit (or any-hit) trace of R rays.
 
@@ -262,12 +352,20 @@ def trace_rays(
     (the ones the rasterizer tests): a slot whose bit at the hit's (u, v) is 0
     does not hit. A CUDA ray set launches the kernel (counted in
     ``trace_rays.launches``); a CPU one runs ``trace_rays_reference``; any
-    other device raises."""
+    other device raises.
+
+    ``scattered`` changes only how the kernel keeps its lanes busy, never the
+    result: rays whose neighbours in index order go different ways (AO, GI
+    and probe rays, rays from scattered hit points) refill idle lanes; rays
+    that walk together (shadow rays from the camera's pixels, primary rays)
+    are walked a batch at a time. Each call site passes its entry of
+    ``SCATTERED``, where the policies are measured and kept together."""
     if origins.device.type == "cpu":
         return trace_rays_reference(bvh, origins, directions, tmin, tmax, any_hit, max_steps,
                                     active, alpha_bitmap_test, masked_any_hit=masked_any_hit)
     call = prepare_trace(bvh, origins, directions, tmin, tmax, any_hit, max_steps, active,
-                         alpha_bitmap_test, masked_any_hit=masked_any_hit)
+                         alpha_bitmap_test, masked_any_hit=masked_any_hit,
+                         scattered=scattered)
     call.launch()
     trace_rays.launches += 1
     return call.outputs
@@ -278,26 +376,35 @@ trace_rays.launches = 0
 
 def prepare_trace(bvh, origins, directions, tmin, tmax, any_hit=False, max_steps=1024,
                   active=None, alpha_bitmap_test=False, counts=False, library=LIBRARY,
-                  masked_any_hit=False):
+                  masked_any_hit=False, scattered=False):
     """Check the inputs of a kernel call and allocate its outputs and scratch
     (the kernel allocates nothing): a TraceCall. Launches and counts nothing;
-    ``trace_rays`` launches once and counts it. ``counts`` adds the work-count
-    scratch (measurements only, never on the frame path)."""
+    ``trace_rays`` launches once and counts it. ``counts`` launches the kernel's
+    counting instantiation, with the work-count scratch (measurements only,
+    never on the frame path). ``scattered`` is the refill policy, as in
+    ``trace_rays``. The kernel reads the BVH's kernel layout: a BVH without
+    one raises (``with_kernel_layout`` builds it)."""
+    missing = [f for f in LAYOUT_FIELDS if getattr(bvh, f) is None]
+    if missing:
+        raise ValueError(f"the BVH has no kernel layout ({', '.join(missing)}): build it with "
+                         "traverse.with_kernel_layout")
     dev = origins.device
     if dev.type != "cuda":
         raise ValueError(f"traversal runs on cuda or cpu tensors, got {dev}")
     r = origins.shape[0]
-    rows = bvh.node_rows
-    m = rows.shape[0]
-    if not 1 <= m < 2 ** 24:
-        raise ValueError(f"the BVH has {m} nodes; the row links need 1 <= M < 2**24")
+    m, s = bvh.node_rows.shape[0], bvh.slot_block.shape[0]
+    if not 1 <= m < 2 ** 24 or s >= 2 ** 24:
+        raise ValueError(f"the BVH has {m} nodes and {s} slots; the links need 1 <= M < 2**24 "
+                         "and S < 2**24")
     if r >= 2 ** 31 // 3:
         raise ValueError(f"{r} rays exceed the kernel's int32 indexing")
     if not 0 <= int(max_steps) < 2 ** 31:
         raise ValueError(f"max_steps must be in [0, 2**31), got {max_steps}")
     _check(origins, "origins", torch.float32, (r, 3), dev)
     _check(directions, "directions", torch.float32, (r, 3), dev)
-    _check(rows, "bvh.node_rows", torch.float32, (m, NODE_ROW_CHANNELS), dev)
+    for name, shape in (("node_header", (m, HEADER_WORDS)), ("node_lookahead", (m, LOOKAHEAD_WORDS)),
+                        ("slot_block", (s, SLOT_WORDS)), ("slot_alpha", (s, ALPHA_WORDS))):
+        _check(getattr(bvh, name), f"bvh.{name}", torch.int32, shape, dev)
     tmin_s, tmin_t = _bound(tmin, "tmin", r, dev)
     tmax_s, tmax_t = _bound(tmax, "tmax", r, dev)
     if active is not None:
@@ -309,13 +416,14 @@ def prepare_trace(bvh, origins, directions, tmin, tmax, any_hit=False, max_steps
 
     t, u, v = empty(r), empty(r), empty(r)
     slot, ray_steps = empty(r, dtype=torch.int32), empty(r, dtype=torch.int32)
-    # The longest walk and whether the cap stopped a ray: the launch clears
-    # both, the kernel reduces into them.
-    steps = empty(1, dtype=torch.int32)
+    # The longest walk, and the rays the warps have claimed (scratch), and
+    # whether the cap stopped a ray: the launch clears all three, the kernel
+    # reduces into them.
+    scalars = empty(2, dtype=torch.int32)
     overflow = empty(1, dtype=torch.bool)
     work = empty(r, len(WORK_COUNTS), dtype=torch.int32) if counts else None
     touched = torch.zeros(m, dtype=torch.uint8, device=dev) if counts else None
-    hits = Hits(t=t, slot=slot, u=u, v=v, steps=steps[0], overflow=overflow[0],
+    hits = Hits(t=t, slot=slot, u=u, v=v, steps=scalars[0], overflow=overflow[0],
                 ray_steps=ray_steps)
 
     def ptr(x):
@@ -327,18 +435,37 @@ def prepare_trace(bvh, origins, directions, tmin, tmax, any_hit=False, max_steps
     def launch():
         with torch.cuda.device(dev):
             err = lib.traverse_launch(
-                rows.data_ptr(), m, origins.data_ptr(), directions.data_ptr(), r,
+                bvh.node_header.data_ptr(), bvh.node_lookahead.data_ptr(),
+                bvh.slot_block.data_ptr(), bvh.slot_alpha.data_ptr(), m,
+                origins.data_ptr(), directions.data_ptr(), r,
                 ptr(tmin_t), 0.0 if tmin_s is None else tmin_s,
                 ptr(tmax_t), 0.0 if tmax_s is None else tmax_s,
                 ptr(active), int(any_hit), int(masked_any_hit), int(alpha_bitmap_test),
-                int(max_steps),
+                int(max_steps), int(scattered),
                 t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(), ray_steps.data_ptr(),
-                steps.data_ptr(), overflow.data_ptr(), ptr(work), ptr(touched), stream,
+                scalars.data_ptr(), overflow.data_ptr(), scalars.data_ptr() + 4,
+                ptr(work), ptr(touched), stream,
             )
         if err != 0:
             raise RuntimeError(f"traverse_launch failed with cudaError_t {err}")
 
     return TraceCall(launch, hits, work, touched)
+
+
+def occupancy(any_hit=False, masked_any_hit=False, alpha_bitmap_test=False, counts=False,
+              library=LIBRARY) -> dict:
+    """The kernel instantiation's registers per thread, resident blocks per SM
+    and the card's SM count (a launch runs blocks x SMs blocks at most), read
+    from the CUDA runtime of the current device."""
+    from ctypes import byref
+
+    vals = [c_int(0), c_int(0), c_int(0)]
+    err = library.load().traverse_occupancy(int(any_hit), int(masked_any_hit),
+                                            int(alpha_bitmap_test), int(counts),
+                                            *(byref(x) for x in vals))
+    if err != 0:
+        raise RuntimeError(f"traverse_occupancy failed with cudaError_t {err}")
+    return dict(zip(("registers", "blocks_per_sm", "sms"), (x.value for x in vals)))
 
 
 def work_counts(call: TraceCall) -> dict:
@@ -513,9 +640,11 @@ def trace_rays_reference(bvh, origins, directions, tmin, tmax, any_hit=False, ma
     return (hits, work, touched) if counts else hits
 
 
-def occlusion(bvh: DeviceBVH, origins, directions, tmin, tmax, max_steps=1024, active=None):
+def occlusion(bvh: DeviceBVH, origins, directions, tmin, tmax, max_steps=1024, active=None,
+              scattered=False):
     """(R,) bool: True where the segment is occluded (any-hit shadow query).
-    Rays outside ``active`` report unoccluded without walking."""
+    Rays outside ``active`` report unoccluded without walking. ``scattered``
+    as in ``trace_rays``."""
     hits = trace_rays(bvh, origins, directions, tmin, tmax, any_hit=True,
-                      max_steps=max_steps, active=active)
+                      max_steps=max_steps, active=active, scattered=scattered)
     return hits.slot >= 0 if active is None else (hits.slot >= 0) & active

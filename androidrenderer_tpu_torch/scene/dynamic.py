@@ -40,7 +40,9 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
-from androidrenderer_tpu_torch.ops.rt.traverse import LOOK0, OPQ0, DeviceBVH, pack_node_rows
+from androidrenderer_tpu_torch.ops.rt.traverse import (
+    LOOK0, OPQ0, DeviceBVH, pack_node_rows, with_kernel_layout,
+)
 from androidrenderer_tpu_torch.scene.bvh import FAR_SENTINEL, LEAF_SIZE, complete_tree_level_slots
 from androidrenderer_tpu_torch.scene.scene import SceneArrays
 
@@ -205,8 +207,9 @@ def refit_bvh(
                           slot_v0, slot_e1, slot_e2)
     rows = torch.cat([rows[:, :OPQ0], bvh.node_rows[:, OPQ0:LOOK0], rows[:, LOOK0:]],
                      dim=1).contiguous()
-    return bvh._replace(node_min=node_min, node_max=node_max, slot_v0=slot_v0,
-                        slot_e1=slot_e1, slot_e2=slot_e2, node_rows=rows)
+    # The traversal kernel's layout, from the new rows.
+    return with_kernel_layout(bvh._replace(node_min=node_min, node_max=node_max, slot_v0=slot_v0,
+                                           slot_e1=slot_e1, slot_e2=slot_e2, node_rows=rows))
 
 
 def make_dynamic_data(render_scene, scene: SceneArrays) -> DynamicSceneData:

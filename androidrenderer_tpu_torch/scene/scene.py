@@ -22,7 +22,9 @@ import numpy as np
 import torch
 
 from androidrenderer_tpu_torch import init_device, native
-from androidrenderer_tpu_torch.ops.rt.traverse import DeviceBVH, empty_device_bvh, pack_node_rows
+from androidrenderer_tpu_torch.ops.rt.traverse import (
+    BVH_FIELDS, DeviceBVH, empty_device_bvh, pack_node_rows, with_kernel_layout,
+)
 from androidrenderer_tpu_torch.scene.material_storage import (
     START_ALIGN,
     MaterialStorage,
@@ -389,7 +391,7 @@ class RenderScene:
                                      np.concatenate(all_alpha), alpha_grid)
         else:
             device_bvh = empty_device_bvh("cpu")
-        leaves.update({f"bvh.{f}": getattr(device_bvh, f).numpy() for f in DeviceBVH._fields})
+        leaves.update({f"bvh.{f}": getattr(device_bvh, f).numpy() for f in BVH_FIELDS})
         stats = {
             "num_vertices": nv,
             "num_triangles": nt,
@@ -442,15 +444,17 @@ def _device_bvh(bvh_np, positions, tri_indices, tri_alpha_mode, alpha_grid) -> D
 def scene_arrays_from_numpy(leaves: Dict[str, np.ndarray], device) -> SceneArrays:
     """SceneArrays on ``device`` from a flat dict of numpy arrays keyed by field
     name (``proxy.<name>`` for the proxy mesh, ``bvh.<name>`` for the BVH; with
-    no ``bvh.`` keys ``bvh`` is None). 64-bit arrays are narrowed to 32 bits,
-    as the JAX package stores them."""
+    no ``bvh.`` keys ``bvh`` is None; the traversal kernel's layout of the BVH
+    is built on ``device``). 64-bit arrays are narrowed to 32 bits, as the JAX
+    package stores them."""
     dev = init_device(device)
     proxy = ProxyMesh(
         **{f: _tensor(leaves[f"proxy.{f}"], dev) for f in ProxyMesh._fields}
     )
     bvh = None
     if any(k.startswith("bvh.") for k in leaves):
-        bvh = DeviceBVH(**{f: _tensor(leaves[f"bvh.{f}"], dev) for f in DeviceBVH._fields})
+        bvh = with_kernel_layout(
+            DeviceBVH(**{f: _tensor(leaves[f"bvh.{f}"], dev) for f in BVH_FIELDS}))
     fields = {
         f: _tensor(leaves[f], dev)
         for f in SceneArrays._fields if f not in ("bvh", "proxy")
@@ -467,5 +471,5 @@ def scene_arrays_to_numpy(scene: SceneArrays) -> Dict[str, np.ndarray]:
     out.update({f"proxy.{f}": getattr(scene.proxy, f).cpu().numpy()
                 for f in ProxyMesh._fields})
     if scene.bvh is not None:
-        out.update({f"bvh.{f}": getattr(scene.bvh, f).cpu().numpy() for f in DeviceBVH._fields})
+        out.update({f"bvh.{f}": getattr(scene.bvh, f).cpu().numpy() for f in BVH_FIELDS})
     return out

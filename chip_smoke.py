@@ -6,9 +6,13 @@
                                      # writes the torch.profiler table beside the kernel
                                      # build (build/torch_kernels/torch_frame_profile.txt)
     python3 chip_smoke.py --parent-csrc DIR  # also times the kernels of another tree's
-                                     # csrc/ (raster.cu, gather.cu: e.g. the parent commit's,
-                                     # unpacked with git archive) beside this tree's, in
-                                     # turns (old, new, new, old) at every timed call site
+                                     # csrc/ (raster.cu, gather.cu, traverse.cu: e.g. the
+                                     # parent commit's, unpacked with git archive) beside
+                                     # this tree's, in turns (old, new, new, old) at every
+                                     # timed call site
+    python3 chip_smoke.py --traversal  # only the card, the builds and the traversal
+                                     # phases (12-14, 19), with their gates; no results
+                                     # line
 
 Kernel-only times (``kernel_ms``, tools/kernel_timing.py): the launch function
 alone, its buffers and records prepared beforehand, 50 launches back to back
@@ -21,6 +25,8 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 1. the card: torch's device name, and nvidia-smi's name and power limit;
 2. build csrc/raster.cu, csrc/gather.cu and csrc/traverse.cu for sm_90a, one
    nvcc for each, all started together (seconds, and ptxas' register report);
+   the traversal kernel's registers per thread and resident blocks per SM, for
+   the frame's instantiations and the counting ones;
 3. the kernel against its plain PyTorch version at the main path's shapes on
    the bench scene and camera (bench.py:134-144): the 1088x1920 main view with
    the alpha grid, and one 1024^2 cascade (depth_only + affine_z). Both must be
@@ -75,14 +81,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
 12. the RT frame (the headless CLI's --shadow rt --ao rt: frame A with one
    jittered any-hit sun ray and rtao_num_samples=4 AO rays per pixel, all
    through csrc/traverse.cu, built beside the others in phase 2): (a) the
-   bench scene's BVH (builder, seconds, nodes, slots, node_rows MB); (b) the
+   bench scene's BVH (builder, seconds, nodes, slots, node_rows MB) and the
+   kernel's layout of it (MB per field, the time and peak memory of building
+   it anew); (b) the
    traversal kernel against its plain version at the frame's call sites, from
    the RT frame's first gbuffer — the shadow rays and RTAO sample 0 (any-hit,
    alpha bitmaps) and primary rays through the same view (closest-hit, the
    mode of RTGI's and the probes' traces): on a 65,536-ray subset sampled with
    a fixed seed (sky pixels included) slot, t, u, v and each ray's steps
-   bit-equal and the longest walk and overflow equal; call ms, kernel-only us, the bound
-   (``traverse_bound``) and the plain version's ms on the subset; (c) the frame
+   bit-equal and the longest walk and overflow equal; call ms, kernel-only us and
+   ps per step (with --parent-csrc the other tree's kernel in turns, and whether
+   its outputs are the same), the layout's MB, the bound (``traverse_bound``,
+   which counts 436 B per distinct node row whatever the layout) and the plain
+   version's ms on the subset; (c) the frame
    timed as phase 4, with exactly 5 traversal and 4 raster launches per frame
    (RT shadows replace the cascades); (d) the frame at 128^2 on the card and on
    the CPU, within the thresholds written beside the call;
@@ -214,31 +225,15 @@ PARENT = {}
 
 
 def parent_raster_launch(records, height, width, depth_only, affine_z, z_limit, alpha_grid):
-    """A launch of the other tree's raster_launch (its signature: no scratch
-    but the key buffer) on buffers allocated here, or None without one."""
-    import torch
+    """A launch of the other tree's raster_launch (this tree's signature, as
+    since the band mode) on buffers allocated here, or None without one."""
+    from androidrenderer_tpu_torch.ops.raster.raster import prepare_raster
 
     lib = PARENT.get("raster")
     if lib is None:
         return None
-    dev = records.device
-    depth = torch.empty((height, width), dtype=torch.float32, device=dev)
-    keys = None if depth_only else torch.empty((height, width), dtype=torch.int64, device=dev)
-    vis = None if depth_only else torch.empty((height, width), dtype=torch.int32, device=dev)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    fn = lib.load().raster_launch
-    stream = torch.cuda.current_stream().cuda_stream
-
-    def launch():
-        if fn(records.data_ptr(), records.shape[0], height, width, ptr(z_limit),
-              ptr(alpha_grid), int(depth_only), int(affine_z), ptr(keys), depth.data_ptr(),
-              ptr(vis), stream) != 0:
-            raise RuntimeError("the other tree's raster_launch failed")
-
-    return launch
+    return prepare_raster(records, height, width, depth_only, affine_z, z_limit, alpha_grid,
+                          library=lib).launch
 
 
 def raster_site(label, setup, height, width, depth_only=False, affine_z=False, z_limit=None,
@@ -273,6 +268,43 @@ def raster_site(label, setup, height, width, depth_only=False, affine_z=False, z
     return dict(kernel_ms=kernel_ms, parent_kernel_ms=parent_ms, work=work)
 
 
+def parent_trace_launch(bvh, origins, directions, tmin, tmax, any_hit=False, active=None,
+                        alpha_bitmap_test=False, masked_any_hit=False, max_steps=1024):
+    """A launch of the other tree's traverse_launch (its signature: one thread
+    per ray over ``node_rows``) on buffers allocated here, and its outputs; or
+    (None, None) without one."""
+    import torch
+
+    from androidrenderer_tpu_torch.ops.rt.traverse import _bound
+
+    lib = PARENT.get("traverse")
+    if lib is None:
+        return None, None
+    dev, r = origins.device, origins.shape[0]
+    (tmin_s, tmin_t), (tmax_s, tmax_t) = _bound(tmin, "tmin", r, dev), _bound(tmax, "tmax", r, dev)
+    out = {k: torch.empty(r, dtype=dt, device=dev) for k, dt in (
+        ("t", torch.float32), ("slot", torch.int32), ("u", torch.float32), ("v", torch.float32),
+        ("ray_steps", torch.int32))}
+    steps = torch.empty(1, dtype=torch.int32, device=dev)
+    overflow = torch.empty(1, dtype=torch.bool, device=dev)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    fn = lib.load().traverse_launch
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch():
+        if fn(bvh.node_rows.data_ptr(), bvh.node_rows.shape[0], origins.data_ptr(),
+              directions.data_ptr(), r, ptr(tmin_t), tmin_s or 0.0, ptr(tmax_t), tmax_s or 0.0,
+              ptr(active), int(any_hit), int(masked_any_hit), int(alpha_bitmap_test),
+              int(max_steps), *(out[k].data_ptr() for k in ("t", "slot", "u", "v", "ray_steps")),
+              steps.data_ptr(), overflow.data_ptr(), None, None, stream) != 0:
+            raise RuntimeError("the other tree's traverse_launch failed")
+
+    return launch, out
+
+
 def bench_setup(device):
     """The bench scene (with its BVH), its bake stats, camera and raster-only
     config (bench.py:83-195)."""
@@ -297,6 +329,9 @@ def bench_setup(device):
     return cfg, scene, stats, cam.view_data()
 
 
+# A traversal site's keys in the results line.
+SITE_KEYS = ("ms", "kernel_ms", "parent_kernel_ms", "ps_per_step", "plain_ms", "bound_ms",
+             "bound_by", "rays")
 # The band sites' keys in the results line.
 BAND_KEYS = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "index", "work")
 # The bench scene's RenderScene (bench_setup), which the dynamic phase reads.
@@ -1023,29 +1058,39 @@ def subset(n: int, seed: int):
     return torch.from_numpy(np.sort(rng.choice(n, 65536, replace=False))).cuda()
 
 
+def layout_mb(bvh) -> float:
+    """MB of the traversal kernel's layout of ``bvh``."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import LAYOUT_FIELDS
+
+    return sum(getattr(bvh, f).numel() * 4 for f in LAYOUT_FIELDS) / 1e6
+
+
 def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample, active=None,
-               masked_any_hit=False, bitmap=True):
+               masked_any_hit=False, bitmap=True, site="rt_shadow"):
     """The traversal kernel against its plain version at one call site: the
     kernel on every ray and on the ``sample`` subset, the plain version on the
-    subset (bit-equal), times and the bound. ``tmin`` may be per ray, as
+    subset (bit-equal), times and the bound; the other tree's kernel
+    (--parent-csrc) in turns on every ray. ``tmin`` may be per ray, as
     ``active``; ``masked_any_hit`` and ``bitmap`` (the alpha bitmap test) as
-    the call site passes them. Returns a dict with ``eq``."""
+    the call site passes them, and the refill policy of ``site``
+    (traverse.SCATTERED). Returns a dict with ``eq``."""
     import torch
 
     from androidrenderer_tpu_torch.ops.rt.traverse import (
-        prepare_trace, trace_rays, trace_rays_reference, work_counts,
+        SCATTERED, prepare_trace, trace_rays, trace_rays_reference, work_counts,
     )
-    from androidrenderer_tpu_torch.tools.kernel_timing import kernel_only_ms
+    from androidrenderer_tpu_torch.tools.kernel_timing import in_turns
 
     kw = dict(any_hit=any_hit, alpha_bitmap_test=bitmap, masked_any_hit=masked_any_hit,
               active=active)
+    scattered = SCATTERED[site]
     per_ray_tmin = isinstance(tmin, torch.Tensor)
     kw_s = dict(kw, active=None if active is None else active[sample].contiguous())
     tmin_s = tmin[sample].contiguous() if per_ray_tmin else tmin
     fields = ("slot", "t", "u", "v", "ray_steps")
-    full = trace_rays(bvh, origins, directions, tmin, tmax, **kw)
+    full = trace_rays(bvh, origins, directions, tmin, tmax, scattered=scattered, **kw)
     o_s, d_s = origins[sample].contiguous(), directions[sample].contiguous()
-    got = trace_rays(bvh, o_s, d_s, tmin_s, tmax, **kw_s)
+    got = trace_rays(bvh, o_s, d_s, tmin_s, tmax, scattered=scattered, **kw_s)
     want = trace_rays_reference(bvh, o_s, d_s, tmin_s, tmax, **kw_s)
     torch.cuda.synchronize()
     eq = all(torch.equal(getattr(got, f), getattr(want, f))
@@ -1054,9 +1099,13 @@ def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample, act
     err = max((getattr(got, f).double() - getattr(want, f).double()).abs().max().item()
               for f in ("t", "u", "v"))
     finite = all(bool(torch.isfinite(getattr(full, f)).all()) for f in ("t", "u", "v"))
-    ms = cuda_ms(lambda: trace_rays(bvh, origins, directions, tmin, tmax, **kw))
-    kernel_ms = kernel_only_ms(prepare_trace(bvh, origins, directions, tmin, tmax, **kw).launch)
-    counted = prepare_trace(bvh, origins, directions, tmin, tmax, counts=True, **kw)
+    ms = cuda_ms(lambda: trace_rays(bvh, origins, directions, tmin, tmax, scattered=scattered,
+                                    **kw))
+    call = prepare_trace(bvh, origins, directions, tmin, tmax, scattered=scattered, **kw)
+    parent, parent_out = parent_trace_launch(bvh, origins, directions, tmin, tmax, **kw)
+    kernel_ms, parent_ms = in_turns(call.launch, parent)
+    counted = prepare_trace(bvh, origins, directions, tmin, tmax, counts=True,
+                            scattered=scattered, **kw)
     counted.launch()
     work = work_counts(counted)
     r = origins.shape[0]
@@ -1067,18 +1116,27 @@ def trace_site(label, bvh, origins, directions, tmin, tmax, any_hit, sample, act
     mode = ("masked any" if masked_any_hit else "any" if any_hit else "closest") + "-hit"
     mode += ", alpha bitmaps" if bitmap else ", no bitmaps"
     mode += ", per-ray tmin" if per_ray_tmin else ""
+    mode += ", scattered" if scattered else ""
     if active is not None:
         mode += f", {n_active} active"
+    ps_step = kernel_ms * 1e9 / max(work["steps"], 1)
+    other = ""
+    if parent is not None:
+        torch.cuda.synchronize()
+        agree = all(torch.equal(parent_out[f], getattr(full, f)) for f in fields)
+        other = (f" (other tree's kernel {parent_ms * 1e3:.1f} us, "
+                 f"{parent_ms * 1e9 / max(work['steps'], 1):.1f} ps/step, same outputs: {agree})")
     print(f"traverse {label}: {r} rays ({mode}), "
           f"hit {hits:.4f}, longest walk {int(full.steps)}, overflow {bool(full.overflow)}; "
           f"{sample.numel()}-ray subset bit-equal={eq} (max|d t,u,v|={err}), kernel on all rays "
           f"= kernel on the subset: {same_rays}, finite: {finite}; call {ms:.3f} ms, "
-          f"kernel-only {kernel_ms * 1e3:.1f} us, plain (subset) {plain_ms:.1f} ms, "
+          f"kernel-only {kernel_ms * 1e3:.1f} us, {ps_step:.1f} ps/step{other}, "
+          f"layout {layout_mb(bvh):.1f} MB, plain (subset) {plain_ms:.1f} ms, "
           f"bound {bound_ms * 1e3:.2f} us ({bound_by}: {text}); library: none")
     return dict(eq=eq and same_rays and finite and not bool(full.overflow), err=err, ms=ms,
-                kernel_ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                hit_share=hits, longest_walk=int(full.steps), work=work, rays=r,
-                plain_rays=sample.numel())
+                kernel_ms=kernel_ms, parent_kernel_ms=parent_ms, ps_per_step=ps_step,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, hit_share=hits,
+                longest_walk=int(full.steps), work=work, rays=r, plain_rays=sample.numel())
 
 
 def rt_phase(scene, stats, view, profile: bool, card: str):
@@ -1097,6 +1155,19 @@ def rt_phase(scene, stats, view, profile: bool, card: str):
     m, slots = bvh.node_rows.shape[0], bvh.slot_tri.shape[0]
     print(f"BVH: builder {stats['bvh_builder']}, {stats['bvh_s']:.2f} s; {m} nodes, {slots} slots, "
           f"node_rows {tuple(bvh.node_rows.shape)} = {bvh.node_rows.numel() * 4 / 1e6:.1f} MB")
+    # The kernel's layout beside the rows, and what building it anew costs.
+    from androidrenderer_tpu_torch.ops.rt.traverse import LAYOUT_FIELDS, with_kernel_layout
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build_ms = cuda_ms(lambda: with_kernel_layout(bvh), reps=3)
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"kernel layout {layout_mb(bvh):.1f} MB ("
+          + ", ".join(f"{f} {tuple(getattr(bvh, f).shape)} {getattr(bvh, f).numel() * 4 / 1e6:.1f} MB"
+                      for f in LAYOUT_FIELDS)
+          + f"); building it anew: {build_ms:.3f} ms, peak {peak / 1e6:.1f} MB above the "
+          f"scene's {base / 1e6:.1f} MB ({card})")
     cfg = default_frame_config(1920, 1088, shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
     params = RenderParams.default()
     first, _ = make_renderer(cfg)(scene, view, params, temporal_state_for(cfg, device="cuda"))
@@ -1115,8 +1186,9 @@ def rt_phase(scene, stats, view, profile: bool, card: str):
     sites = {
         "shadow": trace_site("shadow rays", bvh, o_s, d_s, effects.RAY_EPS, 1e30, True, sample),
         "rtao": trace_site("RTAO sample 0", bvh, o_s, d_ao, effects.RAY_EPS,
-                           params.rtao_max_distance, True, sample),
-        "primary": trace_site("primary rays", bvh, o_p, d_p, 0.0, 1e30, False, sample),
+                           params.rtao_max_distance, True, sample, site="rtao"),
+        "primary": trace_site("primary rays", bvh, o_p, d_p, 0.0, 1e30, False, sample,
+                              site="primary"),
     }
     problems = [f"the kernel and the plain version disagree at the {k} site"
                 for k, r in sites.items() if not r["eq"]]
@@ -1147,7 +1219,7 @@ def rtgi_phase(scene, view, profile: bool, card: str):
         AOMode, GIMode, RenderParams, ShadowMode, default_frame_config,
     )
     from androidrenderer_tpu_torch.ops.rt import effects
-    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.ops.rt.traverse import SCATTERED, trace_rays
     from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
 
     bvh = scene.bvh
@@ -1163,7 +1235,8 @@ def rtgi_phase(scene, view, profile: bool, card: str):
     # each front-face hit.
     valid = g.valid.reshape(-1).contiguous()
     o, d = effects.gi_rays(g.world_position, g.normal, 0)
-    hits = trace_rays(bvh, o, d, eps, 1e30, active=valid, alpha_bitmap_test=True)
+    hits = trace_rays(bvh, o, d, eps, 1e30, active=valid, alpha_bitmap_test=True,
+                      scattered=SCATTERED["rtgi_rays"])
     hp, hn, front = effects.hit_geometry(scene, bvh, o, d, hits)
     sun = scene.sun_direction
     to_sun = -sun / torch.sqrt((sun * sun).sum())
@@ -1178,10 +1251,11 @@ def rtgi_phase(scene, view, profile: bool, card: str):
                   & ~effects._hit_alpha_passes(scene, bvh, peel1)).contiguous()
     t0 = torch.where(unresolved, peel1.t, torch.full_like(peel1.t, eps)).contiguous()
     sites = {
-        "rtgi": trace_site("RTGI rays", bvh, o, d, eps, 1e30, False, sample, active=valid),
+        "rtgi": trace_site("RTGI rays", bvh, o, d, eps, 1e30, False, sample, active=valid,
+                           site="rtgi_rays"),
         "rtgi_shadow": trace_site("RTGI hit-point sun rays", bvh, (hp + hn * 0.02).contiguous(),
                                   to_sun.expand(hp.shape).contiguous(), eps, 1e30, True, sample,
-                                  active=lit),
+                                  active=lit, site="rtgi_sun"),
         "peel": trace_site("exact alpha peel, shadow rays' second peel", bvh, o_s, d_s, t0, 1e30,
                            True, sample, active=unresolved, masked_any_hit=True, bitmap=False),
     }
@@ -1219,7 +1293,7 @@ def probes_phase(scene, view, profile: bool, card: str):
     from androidrenderer_tpu_torch.config import GIMode, default_frame_config
     from androidrenderer_tpu_torch.ops import probes
     from androidrenderer_tpu_torch.ops.rt import effects
-    from androidrenderer_tpu_torch.ops.rt.traverse import trace_rays
+    from androidrenderer_tpu_torch.ops.rt.traverse import SCATTERED, trace_rays
     from androidrenderer_tpu_torch.render import temporal_state_for
 
     bvh = scene.bvh
@@ -1233,15 +1307,18 @@ def probes_phase(scene, view, profile: bool, card: str):
     print(f"probe update: {cfg.probe_cascades} cascades of {cfg.probe_grid}, budget "
           f"{cfg.probe_budget}, {cfg.probe_rays} rays: {n} probe rays per frame")
     sample = subset(n, 7)
-    hits = trace_rays(bvh, o, d, 0.01, 1e30, alpha_bitmap_test=True)
+    hits = trace_rays(bvh, o, d, 0.01, 1e30, alpha_bitmap_test=True,
+                      scattered=SCATTERED["probe_rays"])
     hp, hn, _ = effects.hit_geometry(scene, bvh, o, d, hits)
     sun = scene.sun_direction
     to_sun = -sun / torch.sqrt((sun * sun).sum())
     sites = {
-        "probe": trace_site("probe rays", bvh, o, d, 0.01, 1e30, False, sample),
+        "probe": trace_site("probe rays", bvh, o, d, 0.01, 1e30, False, sample,
+                            site="probe_rays"),
         "probe_shadow": trace_site("probe hit-point sun rays", bvh, (hp + hn * 0.02).contiguous(),
                                    to_sun.expand(hp.shape).contiguous(), 0.01, 1e30, True,
-                                   sample, active=(hits.slot >= 0).contiguous()),
+                                   sample, active=(hits.slot >= 0).contiguous(),
+                                   site="probe_sun"),
     }
     problems = [f"the kernel and the plain version disagree at the {k} site"
                 for k, r in sites.items() if not r["eq"]]
@@ -1607,7 +1684,8 @@ def dynamic_phase(scene, render_scene, view, profile: bool, card: str):
                  ("tri_corner_pos", dev_s.tri_corner_pos, host.tri_corner_pos),
                  ("proxy.corners", dev_s.proxy.corners, host.proxy.corners)]
         exact += [(f"bvh.{f}", getattr(dev_s.bvh, f), getattr(host.bvh, f))
-                  for f in ("node_min", "node_max", "slot_v0", "slot_e1", "slot_e2", "node_rows")]
+                  for f in ("node_min", "node_max", "slot_v0", "slot_e1", "slot_e2", "node_rows",
+                            "node_header", "node_lookahead", "slot_block", "slot_alpha")]
         bad = [k for k, a, b in exact if not torch.equal(bits(a).cpu(), bits(b))]
         d_n = max((a.cpu() - b).abs().max().item() for a, b in (
             (dev_s.normals, host.normals), (dev_s.tangents, host.tangents),
@@ -1615,7 +1693,7 @@ def dynamic_phase(scene, render_scene, view, profile: bool, card: str):
             (dev_s.proxy.normals, host.proxy.normals)))
         worst = max(worst, d_n)
         print(f"(b) frame {i} transforms, card vs CPU: positions, bounds, corner tables, node "
-              f"boxes, slot tables and rows bit-equal: {not bad}{'' if not bad else f' ({bad})'}; "
+              f"boxes, slot tables, rows and the kernel layout bit-equal: {not bad}{'' if not bad else f' ({bad})'}; "
               f"max|d normal, tangent| {d_n:.3g} (bound 1e-6)")
         if bad or d_n > 1e-6:
             problems.append(f"frame {i}: the card's update differs from the CPU's ({bad}, {d_n})")
@@ -1864,6 +1942,23 @@ def bands_phase(scene, profile: bool, card: str):
                 pixels_differing=worst_share), problems
 
 
+def traversal_phases(scene, stats, view, profile: bool, card: str) -> int:
+    """Phases 12-14 and 19 alone (--traversal): every traversal site, with its
+    gates, and the four frames that trace; no results line."""
+    for label, run in (
+        ("RT frame", lambda: rt_phase(scene, stats, view, profile, card)),
+        ("RTGI frame", lambda: rtgi_phase(scene, view, profile, card)),
+        ("probe frame", lambda: probes_phase(scene, view, profile, card)),
+        ("dynamic scene", lambda: dynamic_phase(scene, BENCH["render_scene"], view, profile,
+                                                card)),
+    ):
+        problems = run()[-1]
+        if problems:
+            return fail(f"{label}: " + "; ".join(problems))
+    print(f"chip_smoke: the traversal phases passed ({card})")
+    return 0
+
+
 def main(argv) -> int:
     import torch
 
@@ -1872,7 +1967,7 @@ def main(argv) -> int:
     if not (REPO / "androidrenderer_tpu_torch" / "csrc" / "raster.cu").is_file():
         return fail(f"androidrenderer_tpu_torch/ is not beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO))
-    from ctypes import c_int, c_longlong, c_void_p
+    from ctypes import c_float, c_int, c_longlong, c_void_p
 
     from androidrenderer_tpu_torch import init_device
     from androidrenderer_tpu_torch.ops.cuda_build import Library, load_all
@@ -1895,24 +1990,48 @@ def main(argv) -> int:
     # of phase 20 starts: the ranks load these builds)
     if "--parent-csrc" in argv:
         parent = Path(argv[argv.index("--parent-csrc") + 1]).resolve()
-        PARENT["raster"] = Library(parent / "raster.cu", {"raster_launch": [
-            c_void_p, c_int, c_int, c_int, c_void_p, c_void_p, c_int, c_int, c_void_p, c_void_p,
-            c_void_p, c_void_p]})
-        PARENT["gather"] = Library(parent / "gather.cu", {"gather_tile_sums_launch": [
-            c_void_p, c_longlong, c_int, c_void_p, c_longlong, c_void_p, c_void_p]})
-    load_all(LIBRARY, GATHER_LIBRARY, TRAVERSE_LIBRARY, *PARENT.values())
-    for lib in (LIBRARY, GATHER_LIBRARY, TRAVERSE_LIBRARY, *PARENT.values()):
+        others = {
+            "raster": (LIBRARY, LIBRARY.functions),
+            "gather": (GATHER_LIBRARY, {"gather_tile_sums_launch": [
+                c_void_p, c_longlong, c_int, c_void_p, c_longlong, c_void_p, c_void_p]}),
+            # The signature before the kernel layout: node_rows, no scattered, no counter.
+            "traverse": (TRAVERSE_LIBRARY, {"traverse_launch": [
+                c_void_p, c_int, c_void_p, c_void_p, c_int, c_void_p, c_float, c_void_p,
+                c_float, c_void_p, c_int, c_int, c_int, c_int, *[c_void_p] * 10]}),
+        }
+        for name, (ours, functions) in others.items():
+            source = parent / f"{name}.cu"
+            if source.read_bytes() == ours.source.read_bytes():
+                print(f"the other tree's {name}.cu is this tree's: not timed twice")
+            else:
+                PARENT[name] = Library(source, functions)
+    libraries = (LIBRARY, GATHER_LIBRARY, TRAVERSE_LIBRARY, *PARENT.values())
+    load_all(*libraries)
+    for lib in libraries:
         print(f"built {lib.source} for sm_90a in {lib.build_seconds:.1f} s")
         for line in lib.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+    from androidrenderer_tpu_torch.ops.rt.traverse import occupancy
+
+    for counts in (False, True):
+        occ = {f"{mode}{', bitmaps' if bitmap else ''}": occupancy(any_hit, masked, bitmap, counts)
+               for mode, any_hit, masked in (("closest", False, False), ("any", True, False),
+                                             ("masked any", True, True))
+               for bitmap in (False, True)}
+        print(f"traverse_kernel, the {'counting' if counts else 'frame'} instantiations: "
+              + "; ".join(f"{k}-hit {o['registers']} registers/thread, {o['blocks_per_sm']} "
+                          f"blocks of 128/SM" for k, o in occ.items())
+              + f" ({next(iter(occ.values()))['sms']} SMs)")
 
     # 3. kernel vs plain version at the main path's shapes
     cfg, scene, scene_stats, view = bench_setup(dev)
+    profile = "--profile" in argv
+    if "--traversal" in argv:
+        return traversal_phases(scene, scene_stats, view, profile, f"{kind}; {smi}")
     result, ok, cascade0 = kernel_checks(cfg, scene, view)
     if not ok:
         return fail("kernel and plain version disagree at the bench shapes")
-    profile = "--profile" in argv
 
     # 4. the raster-only frame
     ms, launches, frames, problems, _, _ = run_frames(
@@ -2117,11 +2236,11 @@ def main(argv) -> int:
         bound_by=shadow["bound_by"], library_ms=None,  # no PyTorch call traverses a BVH
         # ms, kernel_ms and bound_ms cover every ray of the site; plain_ms the subset.
         rays=shadow["rays"], plain_rays=shadow["plain_rays"],
+        parent_kernel_ms=shadow["parent_kernel_ms"], ps_per_step=shadow["ps_per_step"],
         **{f"{site}_{k}": rt_sites[site][k]
            for site in ("rtao", "primary", "rtgi", "rtgi_shadow", "peel", "probe", "probe_shadow")
-           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "rays")},
-        **{f"refit_shadow_{k}": refit[k]
-           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "rays")},
+           for k in SITE_KEYS},
+        **{f"refit_shadow_{k}": refit[k] for k in SITE_KEYS},
         dynamic_update_ms=refit["update_ms"], dynamic_refit_ms=refit["refit_ms"],
         dynamic_frame_ms=refit["frame_ms"],
     ))

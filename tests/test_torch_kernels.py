@@ -16,9 +16,13 @@ plain version, and its work counts equal to the plain mirror's. The traversal
 kernel (csrc/traverse.cu) is held bit-equal to ``trace_rays_reference`` on
 random triangles (any-hit and closest-hit), with per-ray bounds, an active
 mask, a step cap that stops rays, the alpha fixture's bitmaps and its work
-counts, and the masked any-hit rule of the exact alpha peel; its wrapper's
-checks, the exact peel on the card against the CPU, and the RT, RTGI and probe
-frames' launches at 128^2. The rasterizer is also held bit-equal at VRSAA's
+counts, and the masked any-hit rule of the exact alpha peel; the persistent
+warps, with each refill policy, at active shares of 0-100%, ray counts of 1,
+31, 33 and 1000, step caps, the refit BVH's layout and launches back to back,
+with the counting instantiation's work counts equal to the plain version's; its wrapper's checks
+(a BVH without the kernel layout raises), the exact peel on the card against
+the CPU, and the RT, RTGI and probe frames' launches at 128^2 (the RT frame's
+traversal kernels all of the instantiation that does not count). The rasterizer is also held bit-equal at VRSAA's
 3840x2176 main view, and the VRSAA frame's launches and dropped count are
 checked against the CPU frame's at 128^2. The band raster (``row_offset``) is
 held bit-equal to the plain version and to the full frame's rows, the refit
@@ -387,6 +391,7 @@ def _traverse_inputs(seed, device, n_tris=2000, n_rays=8192):
     rays through it: origins inside, unit directions, one ray per case below
     with a zero or subnormal direction component."""
     from androidrenderer_tpu_torch import native
+    from androidrenderer_tpu_torch.ops.rt.traverse import BVH_FIELDS, with_kernel_layout
     from androidrenderer_tpu_torch.scene.scene import _device_bvh
 
     rng = np.random.default_rng(seed)
@@ -398,7 +403,7 @@ def _traverse_inputs(seed, device, n_tris=2000, n_rays=8192):
     alpha_mode = np.zeros(n_tris, np.int32)
     grid = np.full((n_tris, 8), -1, np.int32)
     b = _device_bvh(bvh_np, verts, idx, alpha_mode, grid)
-    b = type(b)(*(x.to(device) for x in b))
+    b = with_kernel_layout(b._replace(**{f: getattr(b, f).to(device) for f in BVH_FIELDS}))
     o = rng.uniform(-7, 7, (n_rays, 3)).astype(np.float32)
     d = rng.normal(size=(n_rays, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=1, keepdims=True)
@@ -518,6 +523,169 @@ def test_traverse_wrapper_rejects_bad_inputs(cuda_device):
     call = traverse.prepare_trace(b, o, d, 0.01, 1e30, library=Failing())
     with pytest.raises(RuntimeError, match="700"):
         call.launch()
+
+
+def _check_trace(b, o, d, tmin, tmax, **kw):
+    """trace_rays (the frame's instantiation) and the counting instantiation,
+    with each refill policy (coherent: whole batches; scattered: refills of a
+    warp's idle lanes), against trace_rays_reference: every output bit-equal,
+    the work counts and the rows read equal. Returns the kernel's Hits."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import (
+        prepare_trace, trace_rays, trace_rays_reference,
+    )
+
+    want, work, touched = trace_rays_reference(b, o, d, tmin, tmax, counts=True, **kw)
+    for scattered in (False, True):
+        got = trace_rays(b, o, d, tmin, tmax, scattered=scattered, **kw)
+        call = prepare_trace(b, o, d, tmin, tmax, counts=True, scattered=scattered, **kw)
+        call.launch()
+        _assert_hits_equal(got, want)
+        _assert_hits_equal(call.outputs, want)
+        assert torch.equal(call.work, work) and torch.equal(call.touched.bool(), touched)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("share", [0.0, 0.018, 0.27, 1.0])
+def test_traverse_kernel_active_shares(cuda_device, share, any_hit):
+    """The persistent warps hand out only active rays (the probe, peel and
+    hit-sun sites' shares: 1.8%, 27%, and none or all) and write the inactive
+    rays' misses: bit-equal to the plain version, work counts included."""
+    b, o, d = _traverse_inputs(6, cuda_device)
+    rng = np.random.default_rng(int(share * 1000) + 7)
+    active = torch.from_numpy(rng.random(o.shape[0]) < share).to(cuda_device)
+    got = _check_trace(b, o, d, 0.01, 1e30, any_hit=any_hit, active=active)
+    assert not bool((got.slot[~active] >= 0).any()) and not bool((got.ray_steps[~active] != 0).any())
+    assert bool((got.t[~active] == 1e30).all())
+    if share > 0:
+        assert bool((got.slot[active] >= 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rays", [1, 31, 33, 1000])
+def test_traverse_kernel_ray_counts(cuda_device, n_rays):
+    """Ray counts that fill no warp, or no whole chunk of 128: bit-equal,
+    closest-hit and any-hit, with per-ray bounds."""
+    b, o, d = _traverse_inputs(7, cuda_device)
+    o, d = o[-n_rays:].contiguous(), d[-n_rays:].contiguous()
+    tmax = torch.linspace(2.0, 12.0, n_rays, device=cuda_device)
+    for any_hit in (False, True):
+        _check_trace(b, o, d, 0.01, tmax, any_hit=any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("max_steps", [0, 1, 7, 20])
+def test_traverse_kernel_step_cap(cuda_device, max_steps):
+    """A step cap that stops rays: overflow set, each ray's steps at most the
+    cap, bit-equal to the plain version (a cap of 0 walks no step and stops
+    every active ray)."""
+    b, o, d = _traverse_inputs(8, cuda_device)
+    active = (torch.arange(o.shape[0], device=cuda_device) % 3) != 0
+    got = _check_trace(b, o, d, 0.01, 1e30, max_steps=max_steps, active=active)
+    assert bool(got.overflow) and int(got.steps) == max_steps
+    assert int(got.ray_steps.max()) <= max_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bitmap", [False, True])
+def test_traverse_kernel_masked_shares(cuda_device, bitmap):
+    """The masked any-hit walk (the exact peel's) with the peel site's small
+    active share and per-ray tmin, with and without the bitmaps."""
+    scene, _ = alpha_test_scene().build(device=cuda_device)
+    gx, gy = np.meshgrid(np.linspace(-1.5, 1.5, 80), np.linspace(0.3, 1.9, 80))
+    o = np.stack([gx, gy, np.full_like(gx, -1.0)], -1).reshape(-1, 3).astype(np.float32)
+    d = np.broadcast_to(np.array([0.05, 0.02, 1.0], np.float32), o.shape).copy()
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    rng = np.random.default_rng(9)
+    tmin = torch.from_numpy(rng.uniform(0.0, 1.2, o.shape[0]).astype(np.float32)).to(cuda_device)
+    for share in (0.018, 0.27):
+        active = torch.from_numpy(rng.random(o.shape[0]) < share).to(cuda_device)
+        _check_trace(scene.bvh, o, d, tmin, 3.0, any_hit=True, masked_any_hit=True,
+                     alpha_bitmap_test=bitmap, active=active)
+
+
+@pytest.mark.cuda
+def test_traverse_kernel_on_the_refit_bvh(cuda_device):
+    """The layout the refit builds (scene/dynamic.py: a column lifted, a
+    primitive scaled) on the curtained courtyard, under rays through the
+    columns: bit-equal, closest-hit with the bitmaps and any-hit."""
+    from androidrenderer_tpu_torch.scene import dynamic
+
+    rs = courtyard_scene(curtains=True)
+    scene, _ = rs.build(device=cuda_device)
+    dyn = dynamic.make_dynamic_data(rs, scene)
+    tr = dynamic.initial_transforms(rs, cuda_device)
+    tr[5, 1, 3] += 6.0
+    tr[6, :3, :3] = tr[6, :3, :3] * 1.5
+    moved = dynamic.update_primitive_transforms(scene, dyn, tr).bvh
+    rng = np.random.default_rng(10)
+    o = rng.uniform([-12, 0.2, -8], [12, 6, 8], (20000, 3)).astype(np.float32)
+    d = rng.normal(size=(20000, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.from_numpy(o).to(cuda_device), torch.from_numpy(d).to(cuda_device)
+    _check_trace(moved, o, d, 0.01, 1e30, alpha_bitmap_test=True)
+    got = _check_trace(moved, o, d, 0.01, 1e30, any_hit=True)
+    assert bool((got.slot >= 0).any()) and not bool((got.slot >= 0).all())
+
+
+@pytest.mark.cuda
+def test_traverse_kernel_back_to_back(cuda_device):
+    """Launches back to back on one stream, no sync between them: each clears
+    its own claim counter, so every call walks all its rays (two calls, one of
+    each refill policy, then one call launched twice)."""
+    from androidrenderer_tpu_torch.ops.rt.traverse import prepare_trace, trace_rays_reference
+
+    b, o, d = _traverse_inputs(11, cuda_device)
+    half = o.shape[0] // 2
+    calls = [prepare_trace(b, o[:half], d[:half], 0.01, 1e30, scattered=True),
+             prepare_trace(b, o[half:], d[half:], 0.01, 1e30, any_hit=True)]
+    for c in calls:
+        c.launch()
+    calls[0].launch()
+    _assert_hits_equal(calls[0].outputs, trace_rays_reference(b, o[:half], d[:half], 0.01, 1e30))
+    _assert_hits_equal(calls[1].outputs,
+                       trace_rays_reference(b, o[half:], d[half:], 0.01, 1e30, any_hit=True))
+
+
+@pytest.mark.cuda
+def test_traverse_kernel_needs_the_layout(cuda_device):
+    """A CUDA BVH without the kernel's layout raises; nothing falls back."""
+    from androidrenderer_tpu_torch.ops.rt import traverse
+
+    b, o, d = _traverse_inputs(12, cuda_device, n_tris=64, n_rays=256)
+    bare = b._replace(**{f: None for f in traverse.LAYOUT_FIELDS})
+    launches = traverse.trace_rays.launches
+    with pytest.raises(ValueError, match="no kernel layout"):
+        traverse.trace_rays(bare, o, d, 0.01, 1e30)
+    assert traverse.trace_rays.launches == launches
+    occ = [traverse.occupancy(counts=c) for c in (False, True)]
+    assert all(x["registers"] > 0 and x["blocks_per_sm"] > 0 and x["sms"] > 0 for x in occ)
+
+
+@pytest.mark.cuda
+def test_rt_frame_launches_the_frame_instantiation(cuda_device):
+    """The RT frame at 128^2 under the profiler: every traversal kernel it runs
+    is an instantiation that does not count (the last template argument)."""
+    from androidrenderer_tpu_torch.config import (
+        AOMode, RenderParams, ShadowMode, default_frame_config,
+    )
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+
+    cfg = default_frame_config(128, 128, shadow_cascade_resolution=128,
+                               shadow_mode=ShadowMode.RT, ao_mode=AOMode.RT)
+    scene, _ = courtyard_scene(curtains=True).build(device=cuda_device)
+    cam = Camera(fov_degrees=75.0, aspect=1.0, render_resolution=(128, 128))
+    cam.set_position([0.0, 1.7, 6.0])
+    renderer, temporal = make_renderer(cfg), temporal_state_for(cfg, device=cuda_device)
+    renderer(scene, cam.view_data(), RenderParams.default(), temporal)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        renderer(scene, cam.view_data(), RenderParams.default(), temporal)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if "traverse_kernel" in e.key]
+    assert names and all(n.replace(" ", "").split("traverse_kernel<")[1].split(">")[0]
+                         .endswith("false") for n in names), names
 
 
 @pytest.mark.cuda

@@ -62,7 +62,9 @@ def t(a) -> torch.Tensor:
 
 
 def port_bvh(jbvh) -> traverse.DeviceBVH:
-    return traverse.DeviceBVH(*(t(getattr(jbvh, f)) for f in traverse.DeviceBVH._fields))
+    """The port's BVH from the JAX one's fields, with the kernel's layout."""
+    return traverse.with_kernel_layout(
+        traverse.DeviceBVH(*(t(getattr(jbvh, f)) for f in traverse.BVH_FIELDS)))
 
 
 def same(ours, theirs) -> bool:
@@ -173,7 +175,7 @@ def test_bake_bvh_matches_jax(jax_scenes):
     jscene = jax_scenes["alpha_test_scene"][0]
     leaves, stats = torch_procedural.alpha_test_scene().bake(with_bvh=True)
     assert stats["bvh_builder"] == "native"
-    for f in traverse.DeviceBVH._fields:
+    for f in traverse.BVH_FIELDS:
         ours, theirs = leaves[f"bvh.{f}"], np.asarray(getattr(jscene.bvh, f))
         assert ours.dtype == theirs.dtype, f
         assert np.array_equal(bits(ours) if f == "node_rows" else ours,
