@@ -3,7 +3,8 @@
 ``RenderConfig`` carries the same fields, defaults and enums as the JAX package's
 ``androidrenderer_tpu.config.RenderConfig`` so one config object reads the same in
 both renderers; the TPU-only tunables (``raster_backend``, ``pallas_interpret``,
-slab/unroll counts, tile sizes) are kept for that reason and ignored here.
+slab/unroll counts, tile sizes, ``gbuffer_barrier``) are kept for that reason
+and ignored here; the profiling switches (``debug_*``) act as in the JAX frame.
 ``RenderParams`` holds the continuous parameters as plain Python floats: PyTorch
 runs eagerly, so there is no traced/static split to respect.
 
@@ -140,12 +141,19 @@ class RenderConfig:
 
     vrsaa_budget: float = 0.25
 
+    # Profiling-only switches, honoured as in the JAX frame: each replaces one
+    # stage with shape-identical synthetic data (render/frame.py's docstring),
+    # so whole-frame deltas isolate that stage's in-frame cost. Never set in
+    # production: the image is not the scene's.
     debug_stub_raster: bool = False
     debug_stub_resolve: bool = False
     debug_stub_shadow_sample: bool = False
     debug_resolve_gather_only: bool = False
     debug_stub_rsm: bool = False
     debug_stub_lpv_apply: bool = False
+    # Kept for field parity, without effect: in the JAX frame it only stops XLA
+    # fusing the gbuffer's producers into its consumers, and eager PyTorch
+    # materialises the gbuffer anyway.
     gbuffer_barrier: bool = False
 
     tile_height: int = 32

@@ -6,10 +6,12 @@ The JAX package loads a library built beforehand by tools/build_native.sh with
 ``g++ -O3 -ffp-contract=off -shared -fPIC -std=c++17`` (no ``-march``: the
 library must run on whatever CPU the card's host has), into
 ``build/torch_kernels/libsah_native_<sha16>.so`` keyed by the source's bytes
-and the flags. Only ``sah_build_bvh`` is bound: its output is bit-identical to
-the numpy builder's (scene/bvh.py; tests/test_torch_rt.py holds both against
-the JAX package's ``build_bvh``). ``-ffp-contract=off`` keeps the SAH axis
-cost's rounding equal to numpy's float32 expression.
+and the flags. ``sah_build_bvh``'s output is bit-identical to the numpy
+builder's (scene/bvh.py; tests/test_torch_rt.py holds both against the JAX
+package's ``build_bvh``); ``-ffp-contract=off`` keeps the SAH axis cost's
+rounding equal to numpy's float32 expression. ``sah_sample_surface`` is bound
+as the JAX module binds it (``sample_surface_native``), and ``available`` says
+whether the library could be built and loaded.
 
 ``build_bvh`` picks the builder and says which ran: the native one, or the
 numpy one when the scene has no live triangle or the library cannot be built
@@ -89,10 +91,44 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         f32p, ctypes.c_int64, i32p, ctypes.c_int64, u8p,
         f32p, f32p, i32p, i32p, i32p, i32p,
     ]
+    lib.sah_sample_surface.restype = ctypes.c_int
+    lib.sah_sample_surface.argtypes = [
+        f32p, ctypes.c_int64, i32p, ctypes.c_int64, ctypes.c_float,
+        ctypes.c_int32, ctypes.c_uint64, f32p,
+    ]
     return lib
 
 
 NATIVE = _Native()
+
+
+def available() -> bool:
+    """Whether the native library could be built and loaded."""
+    try:
+        NATIVE.load()
+    except NativeUnavailable:
+        return False
+    return True
+
+
+def sample_surface_native(positions: np.ndarray, tri_indices: np.ndarray,
+                          area_per_sample: float, max_points: int,
+                          seed: int = 1) -> np.ndarray | None:
+    """(k, 6) f32 area-uniform surface samples [position, face normal], about one
+    per ``area_per_sample`` of surface and at most ``max_points``, or None where
+    the library is unavailable."""
+    if not available():
+        return None
+    positions = np.ascontiguousarray(positions, np.float32)
+    tri_indices = np.ascontiguousarray(tri_indices, np.int32)
+    out = np.empty((max_points, 6), np.float32)
+    k = NATIVE.lib.sah_sample_surface(
+        positions, positions.shape[0], tri_indices, tri_indices.shape[0],
+        float(area_per_sample), int(max_points), int(seed), out,
+    )
+    if k < 0:
+        return None
+    return out[:k]
 
 
 def build_bvh_native(positions: np.ndarray, tri_indices: np.ndarray,

@@ -42,6 +42,11 @@ def v_smith_ggx_correlated(nov: torch.Tensor, nol: torch.Tensor, a: torch.Tensor
     return 0.5 / torch.clamp(ggxv + ggxl, min=1e-9)
 
 
+def fd_lambert() -> float:
+    """The Lambertian diffuse lobe, 1/pi."""
+    return 1.0 / PI
+
+
 def fd_burley(
     nov: torch.Tensor, nol: torch.Tensor, loh: torch.Tensor, roughness: torch.Tensor
 ) -> torch.Tensor:

@@ -75,10 +75,15 @@ def resolve_gbuffer(
     use_mr_textures: bool = True,
     use_emission: bool = True,
     pixel_coords=None,  # optional ((...,) px f32, (...,) py f32) matching vis' shape
+    debug_gather_only: bool = False,
 ) -> GBuffer:
     """Shade the visibility buffer. ``vis`` may be any shape: pixel coordinates
     come from the (H, W) grid + ``row_offset``, or from ``pixel_coords`` for
-    strided or scattered shading (VRSAA's coarse quad grid and its fine samples)."""
+    strided or scattered shading (VRSAA's coarse quad grid and its fine samples).
+
+    ``debug_gather_only`` (the profiling switch ``debug_resolve_gather_only``):
+    the plane gather runs, then one cheap pass consumes every gathered channel
+    (``pa + pb + pc``) in place of the per-pixel plane heads and texture fetches."""
     valid = vis >= 0
     tid = vis.clamp(min=0).to(torch.int64)
 
@@ -89,6 +94,19 @@ def resolve_gbuffer(
     pa = pl[..., :nch]
     pb = pl[..., nch : 2 * nch]
     pc = pl[..., 2 * nch :]
+    if debug_gather_only:
+        g = pa + pb + pc
+        one = torch.ones_like(g[..., :1])
+        return GBuffer(
+            base_color=torch.abs(g[..., 0:3]),
+            normal=_normalize(g[..., 2:5] + 0.1),
+            roughness=0.5 * one + 0.0 * g[..., 5:6],
+            metalness=0.1 * one + 0.0 * g[..., 6:7],
+            emission=0.0 * g[..., 7:10],
+            world_position=g[..., 10:13],
+            depth=depth,
+            valid=valid,
+        )
     if pixel_coords is None:
         height, width = vis.shape
         dev = vis.device

@@ -25,8 +25,9 @@ any order; the scatter-add's float sums depend on the order of the adds
 volume and contracts the face terms with two matrix products per step.
 
 The JAX module's single-cascade helpers (``render_rsm``, ``inject``,
-``inject_gv_surfels``, ``_rsm_ortho_matrix``) have no caller in the frame and
-are not ported: ``inject_all`` of one cascade computes what they compute.
+``inject_gv_surfels``, ``_rsm_ortho_matrix``) are here with its signatures; the
+frame calls none of them, and ``inject`` and ``inject_gv_surfels`` are
+``inject_all`` of one cascade.
 """
 
 from __future__ import annotations
@@ -119,6 +120,14 @@ def _ortho_from_sphere(center: torch.Tensor, radius, sun_direction: torch.Tensor
         torch.cat([rowz, (1.0 + _dot3(sun, origin) / depth_range).reshape(1)]),
         eye[3],
     ]).to(torch.float32)
+
+
+def _rsm_ortho_matrix(cascade_min: torch.Tensor, extent, sun_direction: torch.Tensor):
+    """World -> light clip ortho covering a cascade's cube of side ``extent``
+    (its RSM camera)."""
+    center = cascade_min + 0.5 * extent
+    radius = 0.866026 * extent  # bounding sphere of the cube
+    return _ortho_from_sphere(center, radius, sun_direction)
 
 
 def _resolve_rsm(scene, setup, vis: torch.Tensor, use_base_textures: bool = True):
@@ -260,6 +269,51 @@ def inject_all(
     idx = torch.cat(max_idx)
     gv_rows.scatter_reduce_(0, idx[:, None].expand(-1, 4), torch.cat(max_rows), "amax")
     return _unflat_rows(rad_rows, radiance), _unflat_rows(gv_rows, gv)
+
+
+def inject(
+    radiance: torch.Tensor,  # (3, 4, R, R, R) one cascade
+    gv: torch.Tensor,  # (4, R, R, R)
+    vpl_pos: torch.Tensor,  # (K, 3)
+    vpl_normal: torch.Tensor,  # (K, 3)
+    vpl_flux: torch.Tensor,  # (K, 3)
+    vpl_mask: torch.Tensor,  # (K,)
+    cascade_min: torch.Tensor,  # (3,)
+    cell_size,
+    resolution: int,
+):
+    """One cascade's VPLs scattered into its radiance volume (half a cell along
+    the normal) and their occlusion lobes max-combined into its GV: (radiance,
+    gv). ``inject_all`` of that one cascade."""
+    none = (vpl_pos[:0], vpl_normal[:0], vpl_mask[:0])
+    rad, gv = inject_all(radiance[None], gv[None], [(vpl_pos, vpl_normal, vpl_flux, vpl_mask)],
+                         [none], None, None, cascade_min[None], _cells(cell_size, gv), resolution)
+    return rad[0], gv[0]
+
+
+def inject_gv_surfels(
+    gv: torch.Tensor,  # (4, R, R, R) one cascade's geometry volume
+    pos: torch.Tensor,  # (K, 3) surfel positions
+    normal: torch.Tensor,  # (K, 3)
+    mask: torch.Tensor,  # (K,)
+    cascade_min: torch.Tensor,
+    cell_size,
+    resolution: int,
+) -> torch.Tensor:
+    """Surfels' occlusion lobes max-combined into one cascade's GV
+    (light_propagation_volume.cpp:932-968, 1065-1128). ``inject_all`` of that
+    one cascade with no VPL."""
+    r = resolution
+    none = (pos[:0], normal[:0], pos[:0], mask[:0])
+    _, gv = inject_all(gv.new_zeros((1, 3, 4, r, r, r)), gv[None], [none],
+                       [(pos, normal, mask)], None, None, cascade_min[None],
+                       _cells(cell_size, gv), resolution)
+    return gv[0]
+
+
+def _cells(cell_size, like: torch.Tensor) -> torch.Tensor:
+    """A cell size as inject_all's (1,) f32 per-cascade cell sizes."""
+    return torch.as_tensor(cell_size, dtype=torch.float32, device=like.device).reshape(1)
 
 
 def extract_vpls(

@@ -41,6 +41,12 @@ def srgb_to_linear(c: torch.Tensor) -> torch.Tensor:
     return torch.where(c <= 0.04045, c / 12.92, ((c + 0.055) / 1.055) ** 2.4)
 
 
+def linear_to_srgb(c: torch.Tensor) -> torch.Tensor:
+    """IEC 61966-2-1 inverse EOTF (linear -> sRGB), the inverse of srgb_to_linear."""
+    c = torch.clamp(c, 0.0, 1.0)
+    return torch.where(c <= 0.0031308, c * 12.92, 1.055 * c ** (1.0 / 2.4) - 0.055)
+
+
 def to_uint8(c: torch.Tensor) -> torch.Tensor:
     """[0,1] float -> u8, round-to-nearest."""
     return (c * 255.0 + 0.5).clamp(0.0, 255.0).to(torch.uint8)

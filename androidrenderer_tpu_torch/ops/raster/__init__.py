@@ -7,6 +7,7 @@ from androidrenderer_tpu_torch.ops.raster.raster_xla import rasterize_depth, ras
 from androidrenderer_tpu_torch.ops.raster.setup import (
     TriangleSetup,
     clip_to_pixel_h,
+    gather_corners,
     pack_fused_records,
     transform_to_clip,
     triangle_setup,
@@ -16,6 +17,7 @@ from androidrenderer_tpu_torch.ops.raster.setup import (
 __all__ = [
     "TriangleSetup",
     "clip_to_pixel_h",
+    "gather_corners",
     "interpolate_attributes",
     "pack_fused_records",
     "rasterize",

@@ -47,6 +47,13 @@ def clip_to_pixel_h(clip: torch.Tensor, width: int, height: int) -> torch.Tensor
     return torch.stack([xp, yp, w], dim=-1)
 
 
+def gather_corners(positions: torch.Tensor, tri_indices: torch.Tensor) -> torch.Tensor:
+    """(V, 3) positions + (N, 3) indices -> (N, 3, 3) per-triangle corners: the
+    table the scene bakes (SceneArrays.tri_corner_pos, the proxy's ``corners``)
+    so that the per-frame setup gathers nothing."""
+    return positions[tri_indices.to(torch.int64)]
+
+
 def triangle_setup_corners(
     corner_pos: torch.Tensor,  # (N, 3, 3) world-space per-triangle corners
     view_proj: torch.Tensor,  # (4, 4)

@@ -4,8 +4,9 @@ directional_light.frag:62-94): cascade fitting, ortho depth rasters, 2x2 PCF.
 The port of the JAX package's ops/shadow.py for the raster-only frame:
 - 4 cascades, practical split scheme (lambda 0.95, 128 m), sphere fit with
   texel snapping, all in float32 on the scene's device;
-- ONE canonical triangle setup in the union light frame, per-cascade setups
-  derived by affine coefficient transforms (``derive_ortho_setup``), rastered
+- every cascade's triangle setup made under its own matrix, or, in the
+  staggered update, derived from ONE canonical setup in the union light frame
+  by affine coefficient transforms (``derive_ortho_setup``); rastered
   depth-only with the affine z plane by ``ops.raster.rasterize``;
 - staggered updates: cascade 0 every frame plus ``update_budget`` far cascades
   round-robin against the packed-PCF cache in TemporalState; the round-robin
@@ -212,32 +213,40 @@ def derive_ortho_setup(setup_c, mc: torch.Tensor, mi: torch.Tensor, resolution: 
     )
 
 
-def _canonical_setups(positions, tri_indices, tri_valid, mc, resolution,
-                      double_sided, proxy, use_proxy, corners):
+def _setup(mat, resolution, positions, tri_indices, tri_valid, double_sided, corners):
+    """The full geometry's triangle setup under ``mat``."""
     if corners is not None:
-        setup_c = triangle_setup_corners(
-            corners, mc, resolution, resolution,
+        return triangle_setup_corners(
+            corners, mat, resolution, resolution,
             double_sided=double_sided, tri_valid=tri_valid,
         )
-    else:
-        clip = transform_to_clip(positions, mc)
-        setup_c = triangle_setup(
-            clip, tri_indices, resolution, resolution,
-            double_sided=double_sided, tri_valid=tri_valid,
-        )
-    setup_p = (
-        triangle_setup_corners(
-            proxy.corners, mc, resolution, resolution,
-            double_sided=proxy.tri_double_sided, tri_valid=proxy.tri_valid,
-        )
-        if use_proxy else None
+    clip = transform_to_clip(positions, mat)
+    return triangle_setup(
+        clip, tri_indices, resolution, resolution,
+        double_sided=double_sided, tri_valid=tri_valid,
     )
-    return setup_c, setup_p
+
+
+def _proxy_setup(mat, resolution, proxy):
+    return triangle_setup_corners(
+        proxy.corners, mat, resolution, resolution,
+        double_sided=proxy.tri_double_sided, tri_valid=proxy.tri_valid,
+    )
 
 
 def _raster_cascade(src, mc, mi, resolution):
     setup_i = derive_ortho_setup(src, mc, mi, resolution)
     return rasterize(setup_i, resolution, resolution, depth_only=True, affine_z=True)
+
+
+def _raster_direct(mat, on_proxy, resolution, positions, tri_indices, tri_valid,
+                   double_sided, proxy, corners):
+    """One cascade rastered from a setup made under its own matrix."""
+    setup = (
+        _proxy_setup(mat, resolution, proxy) if on_proxy
+        else _setup(mat, resolution, positions, tri_indices, tri_valid, double_sided, corners)
+    )
+    return rasterize(setup, resolution, resolution, depth_only=True, affine_z=True)
 
 
 def render_shadow_cascades(
@@ -251,22 +260,21 @@ def render_shadow_cascades(
     proxy_from_cascade: int = 10**9,  # cascades >= this index rasterize the proxy
     corners: torch.Tensor | None = None,  # (N, 3, 3) baked corner table
 ) -> torch.Tensor:
-    """(C, R, R) reversed-Z shadow depth maps, every cascade rastered."""
+    """(C, R, R) reversed-Z shadow depth maps, every cascade rastered from a
+    setup made under its own matrix, as the JAX package's XLA path does (its
+    Pallas path derives them from the canonical setup, whose cross products
+    cancel on small triangles; the staggered update below derives, as its
+    only JAX version does)."""
     if double_sided is None:
         double_sided = torch.ones(tri_indices.shape[0], dtype=torch.bool, device=tri_valid.device)
     num_cascades = int(cascades.matrices.shape[0])
     k_proxy = min(max(int(proxy_from_cascade), 0), num_cascades)
-    use_proxy = proxy is not None and k_proxy < num_cascades
-    mc = cascades.canonical
-    setup_c, setup_p = _canonical_setups(
-        positions, tri_indices, tri_valid, mc, resolution, double_sided, proxy,
-        use_proxy, corners,
-    )
-    maps = []
-    for i in range(num_cascades):
-        src = setup_p if (use_proxy and i >= k_proxy) else setup_c
-        maps.append(_raster_cascade(src, mc, cascades.matrices[i], resolution))
-    return torch.stack(maps)
+    on_proxy = proxy is not None and k_proxy < num_cascades
+    return torch.stack([
+        _raster_direct(cascades.matrices[i], on_proxy and i >= k_proxy, resolution, positions,
+                       tri_indices, tri_valid, double_sided, proxy, corners)
+        for i in range(num_cascades)
+    ])
 
 
 def render_shadow_cascades_sharded(
@@ -285,24 +293,20 @@ def render_shadow_cascades_sharded(
     ranks of ``group``: rank d rasterizes cascades {i : i % n == d} into a zero
     stack and one all-reduce assembles the set (each map has one owner, so the
     result is the single-device stack bit for bit; the JAX package's version
-    derives each cascade inside a lax.cond and differs by coefficient ulps).
+    derives each cascade inside a lax.cond; this one makes each setup under the
+    cascade's own matrix, as the JAX frame's XLA branch does).
     With n >= C each rank runs one cascade raster instead of C."""
     if double_sided is None:
         double_sided = torch.ones(tri_indices.shape[0], dtype=torch.bool, device=tri_valid.device)
     num_cascades = int(cascades.matrices.shape[0])
     k_proxy = min(max(int(proxy_from_cascade), 0), num_cascades)
-    use_proxy = proxy is not None and k_proxy < num_cascades
-    mc = cascades.canonical
-    setup_c, setup_p = _canonical_setups(
-        positions, tri_indices, tri_valid, mc, resolution, double_sided, proxy,
-        use_proxy, corners,
-    )
+    on_proxy = proxy is not None and k_proxy < num_cascades
     rank, n = band_index(group)
     maps = torch.zeros((num_cascades, resolution, resolution), dtype=torch.float32,
                        device=tri_valid.device)
     for i in range(rank, num_cascades, n):
-        src = setup_p if (use_proxy and i >= k_proxy) else setup_c
-        maps[i] = _raster_cascade(src, mc, cascades.matrices[i], resolution)
+        maps[i] = _raster_direct(cascades.matrices[i], on_proxy and i >= k_proxy, resolution,
+                                 positions, tri_indices, tri_valid, double_sided, proxy, corners)
     return assemble(maps, group)
 
 
@@ -338,10 +342,8 @@ def render_shadow_cascades_staggered(
     k_proxy = min(max(int(proxy_from_cascade), 1), num_cascades)
     use_proxy = proxy is not None and k_proxy < num_cascades
     mc = cascades.canonical
-    setup_c, setup_p = _canonical_setups(
-        positions, tri_indices, tri_valid, mc, resolution, double_sided, proxy,
-        use_proxy, corners,
-    )
+    setup_c = _setup(mc, resolution, positions, tri_indices, tri_valid, double_sided, corners)
+    setup_p = _proxy_setup(mc, resolution, proxy) if use_proxy else None
     new_packed = cached_packed.clone()
     new_matrices = cached_matrices.clone()
 

@@ -136,6 +136,25 @@ def _bilerp(c00, c01, c10, c11, fx, fy):
     return top + (bot - top) * fy
 
 
+def sample_trilinear(
+    pool: torch.Tensor,  # (R, >=16) u8
+    start: torch.Tensor,
+    log2b: torch.Tensor,
+    uv: torch.Tensor,
+    lod: torch.Tensor,  # (...,) f32 fractional level of detail
+) -> torch.Tensor:
+    """Two-fetch trilinear (..., 4): a bilinear sample at each of the two levels
+    around ``lod``, blended; the reference path that sample_trilinear_fused's
+    one-fetch result equals bit for bit."""
+    lodc = torch.minimum(lod.clamp(min=0.0), log2b.to(torch.float32))
+    l0 = torch.floor(lodc).to(torch.int32)
+    l1 = torch.minimum(l0 + 1, log2b.to(torch.int32))
+    f = (lodc - l0.to(torch.float32))[..., None]
+    a = sample_bilinear(pool, start, log2b, uv, l0)
+    b = sample_bilinear(pool, start, log2b, uv, l1)
+    return a + (b - a) * f
+
+
 def sample_trilinear_fused(
     pool: torch.Tensor,  # (R, >=52) u8 — rows carry level L 2x2 + level L+1 3x3
     start: torch.Tensor,

@@ -23,8 +23,23 @@ Under VRSAA the geometry rasterizes at twice the output resolution and every
 stage from the resolve on shades the coarse grid (the quads' top-left samples);
 the fine pass re-shades the other 3 samples of the quads with contrast and
 box-resolves them (ops/vrsaa.py). Every tensor of the frame stays on the
-scene's device. The JAX frame's profiling stubs (``debug_stub_*``) and TPU
-tunables are kept in RenderConfig without effect.
+scene's device. The TPU tunables of RenderConfig have no effect here.
+
+The JAX frame's profiling switches act as they do there, each replacing one
+stage with shape-identical synthetic data so that whole-frame deltas isolate
+that stage's in-frame cost: ``debug_stub_raster`` (the main view's raster and
+occlusion culling: analytic depth and pseudo-random ids, ``_stub_raster``),
+``debug_stub_resolve`` (the gbuffer from elementwise math on the depth, outside
+VRSAA), ``debug_resolve_gather_only`` (the resolve's plane gather without its
+per-pixel heads), ``debug_stub_shadow_sample`` (the cascade rasters run, the
+main view's PCF sample is 1; the VRSAA fine pass still samples),
+``debug_stub_rsm`` (each RSM's raster replaced like the main view's; injection
+still runs) and ``debug_stub_lpv_apply`` (the volumes are built, the apply and
+its upsample skipped, GI = base color x 0.1). Their ``+ 0.0 * texel`` terms
+keep a NaN in the skipped stage's input propagating as it does in JAX.
+``gbuffer_barrier`` only constrains how XLA fuses the JAX frame, whose values do
+not change with it; eager PyTorch materialises the gbuffer anyway, so it has no
+effect here.
 
 Band rendering (``band_height``/``row_offset``, the JAX frame's three modes):
 the frame renders rows [row_offset, row_offset + band_height) of the screen.
@@ -144,6 +159,40 @@ def main_view_setup(scene: SceneArrays, view: ViewData, config: RenderConfig):
 def _exact_alpha(config: RenderConfig) -> bool:
     """Masked triangles go through the exact peel (masked.py), not the bitmaps."""
     return config.alpha_masking and not config.alpha_bitmap
+
+
+def _stub_raster(height: int, width: int, n_tri: int, device):
+    """The profiling stub of a raster (``debug_stub_raster``, ``debug_stub_rsm``):
+    (depth 0.05 + 0.9 |sin(0.013 y + 0.007 x)| f32, ids (7919 y + 104729 x) &
+    (m - 1) i32), m the largest power of 2 <= ``n_tri``, over the local rows of
+    the target. The ids stay within int32: at 3840x2176 they reach about 4.2e8."""
+    m = 1
+    while m * 2 <= n_tri:
+        m *= 2
+    yy = torch.arange(height, dtype=torch.int32, device=device)[:, None]
+    xx = torch.arange(width, dtype=torch.int32, device=device)[None, :]
+    vis = (yy * 7919 + xx * 104729) & (m - 1)
+    depth = 0.05 + 0.9 * torch.abs(torch.sin((yy * 0.013 + xx * 0.007).to(torch.float32)))
+    return depth, vis
+
+
+def _stub_gbuffer(vis: torch.Tensor, depth: torch.Tensor) -> GBuffer:
+    """The profiling stub of the resolve (``debug_stub_resolve``): a gbuffer of
+    the same shapes from elementwise math on the depth, with no plane gather
+    and no texture fetch."""
+    zz = depth[..., None]
+    xyz = torch.cat([zz * 3.0, zz * zz, torch.cos(zz)], dim=-1)
+    one = torch.ones_like(zz)
+    return GBuffer(
+        base_color=torch.abs(torch.sin(xyz)),
+        normal=xyz / torch.sqrt((xyz * xyz).sum(dim=-1, keepdim=True) + 1e-6),
+        roughness=0.5 * one,
+        metalness=0.1 * one,
+        emission=torch.zeros_like(xyz),
+        world_position=xyz * 4.0,
+        depth=depth,
+        valid=vis >= 0,
+    )
 
 
 class Band(NamedTuple):
@@ -289,7 +338,13 @@ def _shadows(scene, inv_view, p00, p11, z_near, params, temporal, config, gbuf, 
             params.shadow_bias, normal=gb.normal, packed_taps=packed,
         )
 
-    return sample(gbuf, depth), cascades, temporal, sample
+    if config.debug_stub_shadow_sample:
+        # The main view's sample only: the VRSAA fine pass samples the maps.
+        keep = packed[0, 0, 0, 0].to(torch.float32) if packed is not None else shadow_maps[0, 0, 0]
+        shadow = torch.ones_like(depth)[..., None] * (1.0 + 0.0 * keep)
+    else:
+        shadow = sample(gbuf, depth)
+    return shadow, cascades, temporal, sample
 
 
 def _half_rate(config: RenderConfig, h: int, w: int) -> bool:
@@ -353,6 +408,16 @@ def _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth, group)
         surfels = tuple(coll.gather_rows(x.contiguous(), group) for x in surfels)
     # The RSMs rasterize the vertex-clustered proxy: their texels are meters wide.
     gi_scene = swap_in_proxy(scene) if config.rsm_proxy else scene
+    raster_fn = rasterize
+    if config.debug_stub_rsm:
+        # As in JAX, m comes from the frame's scene, not the proxy. JAX's gather
+        # reads an id past the last plane row as that row, so the stub clamps
+        # the ids to the RSM scene's rows itself.
+        n_tri, last = scene.tri_indices.shape[0], gi_scene.tri_indices.shape[0] - 1
+
+        def raster_fn(setup, hh, ww):
+            d, v = _stub_raster(hh, ww, n_tri, depth.device)
+            return d, v.clamp(max=last)
     args = (config.lpv_num_cascades, config.lpv_resolution, config.lpv_cell_size,
             config.lpv_rsm_resolution, config.lpv_num_propagation_steps,
             config.lpv_behind_camera_percent)
@@ -365,12 +430,14 @@ def _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth, group)
                 "build the state with temporal_state_for(config)"
             )
         volumes = lpv_ops.update_lpv_staggered(
-            gi_scene, cam_pos, cam_forward, rasterize, temporal.lpv, temporal.frame_index,
+            gi_scene, cam_pos, cam_forward, raster_fn, temporal.lpv, temporal.frame_index,
             *args, update_budget=config.lpv_update_budget, **kw,
         )
         temporal = temporal._replace(lpv=volumes)
     else:
-        volumes = lpv_ops.build_lpv(gi_scene, cam_pos, cam_forward, rasterize, *args, **kw)
+        volumes = lpv_ops.build_lpv(gi_scene, cam_pos, cam_forward, raster_fn, *args, **kw)
+    if config.debug_stub_lpv_apply:
+        return gbuf.base_color * (0.1 + 0.0 * volumes.radiance[0, 0, 0, 0, 0, 0]), temporal
     # float32 product, as the reference's parameters are float32 scalars.
     exposure = float(np.float32(params.lpv_exposure) * np.float32(params.sun_exposure))
     if not _half_rate(config, h, w):
@@ -579,7 +646,11 @@ def render_frame(
 
     with record_function("frame/cull_setup"):
         setup, setup_opaque, alpha_grid = main_view_setup(scene, view, config)
-    if config.occlusion_culling and full:
+    if config.debug_stub_raster:
+        # No raster and no occlusion test: the visibility list stays as it was.
+        with record_function("frame/raster"):
+            depth, vis = _stub_raster(h, w, scene.tri_indices.shape[0], dev)
+    elif config.occlusion_culling and full:
         with record_function("frame/occlusion"):
             depth, vis, temporal = _occlusion_raster(
                 scene, view, config, setup_opaque, alpha_grid, temporal, band
@@ -616,8 +687,11 @@ def render_frame(
             py = (torch.arange(h, dtype=torch.float32, device=dev) * 2.0)[:, None] + row_offset_ss
             gbuf = resolve_gbuffer(scene, setup, vis, depth, attr_planes=attr_planes,
                                    pixel_coords=(px, py.expand(h, w)), **flags)
+        elif config.debug_stub_resolve:
+            gbuf = _stub_gbuffer(vis, depth)
         else:
-            gbuf = resolve_gbuffer(scene, setup, vis, depth, row_offset=band.row_offset, **flags)
+            gbuf = resolve_gbuffer(scene, setup, vis, depth, row_offset=band.row_offset,
+                                   debug_gather_only=config.debug_resolve_gather_only, **flags)
     with record_function("frame/sky"):
         if config.sky:
             sky_img = sky.sky_background(

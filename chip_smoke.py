@@ -13,6 +13,16 @@
     python3 chip_smoke.py --traversal  # only the card, the builds and the traversal
                                      # phases (12-14, 19), with their gates; no results
                                      # line
+    python3 chip_smoke.py --stubs    # only the card, the builds and phases 21-23, with
+                                     # phase 21's switches timed and profiled in
+                                     # mirrored turns; no results line
+    python3 chip_smoke.py --parent-tree DIR  # also phase 24: the unstubbed frames of the
+                                     # package in DIR (e.g. the parent commit's,
+                                     # unpacked with git archive) and of this tree as
+                                     # --tree-frames processes in turns (DIR, this, this,
+                                     # DIR), their kernel counts and device ms gated
+    python3 chip_smoke.py --tree-frames DIR  # that process: DIR's raster-only and
+                                     # parity frames timed and profiled, one JSON line
 
 Kernel-only times (``kernel_ms``, tools/kernel_timing.py): the launch function
 alone, its buffers and records prepared beforehand, 50 launches back to back
@@ -165,7 +175,29 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    (c) ms/frame of both, the ``frame/collectives`` ranges' host and device
    time, and each rank's raster launches per frame (its main-view band, its
    share of the frame's cascades, the RSM); (d) peak device memory per rank;
-21. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+21. the profiling switches (render/frame.py's docstring) on the two frames
+   bench.py times at full width: the raster-only frame (1920x1088) with each
+   of debug_stub_raster, debug_stub_resolve, debug_resolve_gather_only and
+   debug_stub_shadow_sample alone, the parity frame with each of the six alone,
+   each after the unstubbed frame, 3 warm-up frames and a chain of 10: raster
+   launches gated at exactly the unstubbed frame's (3 and 4) less one for the
+   raster stub, and less one for the RSM stub on the parity frame; a finite
+   HDR, and a non-uniform image unstubbed. With --stubs each is also timed as
+   phase 4 (2 chains of 10) and profiled over 3 frames in mirrored turns with
+   the unstubbed frame (unstubbed, every switch, every switch again in
+   reverse, unstubbed): ms/frame, device ms and kernels per profiled frame and
+   their deltas from the unstubbed frame;
+22. the 128^2 parity frame (192^2 output) with each switch alone, card against
+   CPU over 3 moving jittered frames, with phase 5's thresholds (under the
+   raster stub a depth differs beyond 2.4e-7: the analytic depth's sin);
+23. tools/make_goldens.py's six cases on the card
+   (androidrenderer_tpu_torch/tools/golden_cases.py): SSIM >= 0.98 against
+   tests/goldens/*.png with the goldens' 38 holes on the cornell view taken
+   from the golden, and the plain SSIM, printed per case;
+24. with --parent-tree only: the unstubbed raster-only and parity frames of
+   both trees in turns, kernels per profiled frame within one of the other
+   tree's and device ms within 2% of its mean;
+25. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
    the raster family, #5 the gather, each with its call time ``ms``, its
    kernel-only time ``kernel_ms`` and its bound; #1 also at the RSM call site,
    ``rsm_*``, at the VRSAA main view, ``vrsaa_*``, and at the band sites,
@@ -176,7 +208,7 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the dynamic phase's ``dynamic_*`` times), the card line, and the final JSON
    line.
 
-Launch counts are read per path (the frames of phases 4, 7, 8, 12-15 and 19, the
+Launch counts are read per path (the frames of phases 4, 7, 8, 12-15, 19 and 21, the
 gather tool of phase 9, the entry-point calls of phase 10, the microbench of
 phase 11, each CLI run of phase 16, each rank's frames in phase 20): every count
 is set to 0 just before a path runs and read just after, so the launches of the
@@ -305,28 +337,31 @@ def parent_trace_launch(bvh, origins, directions, tmin, tmax, any_hit=False, act
     return launch, out
 
 
-def bench_setup(device):
-    """The bench scene (with its BVH), its bake stats, camera and raster-only
-    config (bench.py:83-195)."""
+def bench_camera():
+    """The bench camera at 1920x1088 (bench.py:134-144)."""
     import numpy as np
 
     from androidrenderer_tpu_torch.camera import Camera
+
+    cam = Camera(fov_degrees=75.0, aspect=1920 / 1088, z_near=0.05,
+                 render_resolution=(1920, 1088))
+    cam.set_position([0.0, 1.7, 6.0])
+    cam.pitch, cam.yaw = -0.05, np.pi
+    return cam.view_data()
+
+
+def bench_setup(device):
+    """The bench scene (with its BVH), its bake stats, camera and raster-only
+    config (bench.py:83-195)."""
     from androidrenderer_tpu_torch.config import raster_only_config
     from androidrenderer_tpu_torch.scene.procedural import courtyard_scene
 
-    width, height = 1920, 1088
-    cfg = raster_only_config(width, height)
+    cfg = raster_only_config()
     t0 = time.perf_counter()
     BENCH["render_scene"] = courtyard_scene(column_rings=4, detail=13, curtains=True)
     scene, stats = BENCH["render_scene"].build(device=device)
     print(f"scene: {stats} (bake + upload {time.perf_counter() - t0:.1f} s)")
-    cam = Camera(
-        fov_degrees=cfg.fov_degrees, aspect=width / height,
-        z_near=cfg.z_near, render_resolution=(width, height),
-    )
-    cam.set_position([0.0, 1.7, 6.0])
-    cam.pitch, cam.yaw = -0.05, np.pi
-    return cfg, scene, stats, cam.view_data()
+    return cfg, scene, stats, bench_camera()
 
 
 # A traversal site's keys in the results line.
@@ -799,15 +834,15 @@ def bench_raster_path(scene):
     return times, split, launches, problems
 
 
-def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
+def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict, chains: int = 4):
     """Phases 4, 7 and 8: (median ms/frame, launches by entry point, frames, failed
-    checks, last outputs, temporal state). ``per_frame`` is the launches each
-    entry point must make per frame; every other entry point must make none."""
+    checks, last outputs, temporal state): 3 warm-up frames, then ``chains``
+    chains of 10. ``per_frame`` is the launches each entry point must make per
+    frame; every other entry point must make none."""
     import numpy as np
     import torch
 
     from androidrenderer_tpu_torch.config import RenderParams
-    from androidrenderer_tpu_torch.ops.cuda_build import BUILD_DIR
     from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
 
     renderer = make_renderer(cfg)
@@ -825,14 +860,14 @@ def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
         out, temp = renderer(scene, view, params, temp)
     torch.cuda.synchronize()
     chain, times = 10, []
-    for _ in range(4):
+    for _ in range(chains):
         t0 = time.perf_counter()
         for _ in range(chain):
             out, temp = renderer(scene, view, params, temp)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3 / chain)
     launches = {name: f.launches for name, f in eps.items()}
-    frames = 3 + 4 * chain
+    frames = 3 + chains * chain
     total = sum(launches.values())
     ms = float(np.median(times))
     print(f"{label} {cfg.render_width}x{cfg.render_height} chained frame times (ms): "
@@ -857,54 +892,75 @@ def run_frames(label, cfg, scene, view, profile: bool, per_frame: dict):
           f"max {int(img.amax())}; pixels covered {(out.visibility >= 0).float().mean().item():.4f}")
 
     if profile:
-        from torch.profiler import ProfilerActivity, profile as torch_profile
-
-        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                out, temp = renderer(scene, view, params, temp)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-        events = prof.key_averages()
-
-        def device_us(e, total):
-            name = ("" if total else "self_") + "device_time_total"
-            alt = ("" if total else "self_") + "cuda_time_total"
-            return getattr(e, name, None) or getattr(e, alt, 0.0)
-
-        # Kernels have device time and no host time of their own; frame/* ranges
-        # appear twice, once with the host-side span (device total = the time of
-        # the kernels they launched) and once as the span on the device's timeline.
-        kernels = [e for e in events if e.cpu_time_total == 0 and device_us(e, False) > 0
-                   and not e.key.startswith("frame/")]
-        busy_ms = sum(device_us(e, False) for e in kernels) / 1e3 / 3
-        table = events.table(sort_by="cuda_time_total", row_limit=80)
-        dest = BUILD_DIR / f"torch_frame_profile_{label.replace(' ', '_')}.txt"
-        dest.parent.mkdir(parents=True, exist_ok=True)
-        dest.write_text(table)
-        print(f"{label} profile of 3 frames written to {dest.relative_to(REPO)}")
-        print(f"{label} profiled frame: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-              f"({busy_ms / wall_ms:.1%}), {sum(e.count for e in kernels) / 3:.0f} kernels")
-        # A range's "torch kernels" are those of the PyTorch ops inside it; the
-        # hand kernels, launched through ctypes, are not attributed to a range:
-        # they count in the busy total and are listed by name below. The device
-        # span is the range's extent on the device's timeline, gaps included.
-        spans = {e.key: device_us(e, False) for e in events
-                 if e.key.startswith("frame/") and e.cpu_time_total == 0}
-        for e in sorted(events, key=lambda e: -e.cpu_time_total):
-            if e.key.startswith("frame/") and e.cpu_time_total > 0:
-                print(f"  {e.key:18s} host {e.cpu_time_total / 1e3 / 3:8.3f} ms, "
-                      f"torch kernels {device_us(e, True) / 1e3 / 3:8.3f} ms, "
-                      f"device span {spans.get(e.key, 0.0) / 1e3 / 3:8.3f} ms per frame")
-        hand = [(name, sum(device_us(e, False) for e in kernels if f"::{name}" in e.key),
-                 sum(e.count for e in kernels if f"::{name}" in e.key)) for name in HAND_KERNELS]
-        print("  hand kernels per frame: " + ", ".join(
-            f"{name} {n / 3:.0f}x {us / 1e3 / 3:.3f} ms" for name, us, n in hand if n))
+        out, temp = profile_frames(label, renderer, scene, view, params, temp, stages=True)
     return ms, launches, frames, problems, out, temp
 
 
+# The last profile of each label (profile_frames): wall and device busy ms and
+# kernels per profiled frame.
+PROFILES = {}
+
+
+def profile_frames(label, renderer, scene, view, params, temp, stages: bool):
+    """3 frames under torch.profiler: prints the wall and device busy ms and the
+    kernels per frame (kept in ``PROFILES[label]``) and, with ``stages``, the
+    table of 80 rows (written beside the kernel build), each ``frame/*`` range's
+    host and device time and the hand kernels per frame. Returns the last
+    (outputs, temporal state)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from androidrenderer_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(3):
+            out, temp = renderer(scene, view, params, temp)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    events = prof.key_averages()
+
+    def device_us(e, total):
+        name = ("" if total else "self_") + "device_time_total"
+        alt = ("" if total else "self_") + "cuda_time_total"
+        return getattr(e, name, None) or getattr(e, alt, 0.0)
+
+    # Kernels have device time and no host time of their own; frame/* ranges
+    # appear twice, once with the host-side span (device total = the time of
+    # the kernels they launched) and once as the span on the device's timeline.
+    kernels = [e for e in events if e.cpu_time_total == 0 and device_us(e, False) > 0
+               and not e.key.startswith("frame/")]
+    busy_ms = sum(device_us(e, False) for e in kernels) / 1e3 / 3
+    n_kernels = sum(e.count for e in kernels) / 3
+    PROFILES[label] = dict(wall_ms=wall_ms, device_ms=busy_ms, kernels=n_kernels)
+    print(f"{label} profiled frame: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({busy_ms / wall_ms:.1%}), {n_kernels:.0f} kernels")
+    if not stages:
+        return out, temp
+    dest = BUILD_DIR / f"torch_frame_profile_{label.replace(' ', '_')}.txt"
+    dest.parent.mkdir(parents=True, exist_ok=True)
+    dest.write_text(events.table(sort_by="cuda_time_total", row_limit=80))
+    print(f"{label} profile of 3 frames written to {dest.relative_to(REPO)}")
+    # A range's "torch kernels" are those of the PyTorch ops inside it; the
+    # hand kernels, launched through ctypes, are not attributed to a range:
+    # they count in the busy total and are listed by name below. The device
+    # span is the range's extent on the device's timeline, gaps included.
+    spans = {e.key: device_us(e, False) for e in events
+             if e.key.startswith("frame/") and e.cpu_time_total == 0}
+    for e in sorted(events, key=lambda e: -e.cpu_time_total):
+        if e.key.startswith("frame/") and e.cpu_time_total > 0:
+            print(f"  {e.key:18s} host {e.cpu_time_total / 1e3 / 3:8.3f} ms, "
+                  f"torch kernels {device_us(e, True) / 1e3 / 3:8.3f} ms, "
+                  f"device span {spans.get(e.key, 0.0) / 1e3 / 3:8.3f} ms per frame")
+    hand = [(name, sum(device_us(e, False) for e in kernels if f"::{name}" in e.key),
+             sum(e.count for e in kernels if f"::{name}" in e.key)) for name in HAND_KERNELS]
+    print("  hand kernels per frame: " + ", ".join(
+        f"{name} {n / 3:.0f}x {us / 1e3 / 3:.3f} ms" for name, us, n in hand if n))
+    return out, temp
+
+
 def card_vs_cpu(label="raster-only", overrides=None, curtains=False, cfg=None,
-                max_far=0.005, max_depth=0.005, moving=False):
+                max_far=0.005, max_depth=0.005, moving=False, depth_atol=0.0):
     """Phases 5, 8 and 12-15: a 128^2 courtyard frame on the card and on the CPU,
     3 chained frames: (the largest share of pixels off by more than one u8 step,
     the largest share of depths differing, each within its bound; under VRSAA
@@ -912,7 +968,9 @@ def card_vs_cpu(label="raster-only", overrides=None, curtains=False, cfg=None,
     ``overrides`` (RenderConfig fields) turn the raster-only config into A or B;
     ``cfg`` replaces it (the parity frame renders 128^2 into a 192^2 output).
     ``moving``: the camera steps and turns each frame with that frame's TAA
-    jitter, so the motion vectors and the history reprojection do work."""
+    jitter, so the motion vectors and the history reprojection do work.
+    ``depth_atol``: a depth counts as differing when it differs by more (0:
+    any difference)."""
     import numpy as np
 
     from androidrenderer_tpu_torch.camera import Camera, taa_jitter
@@ -954,7 +1012,7 @@ def card_vs_cpu(label="raster-only", overrides=None, curtains=False, cfg=None,
     img_d = max(int(np.abs(a[0].astype(int) - b[0].astype(int)).max()) for a, b in pairs)
     far = max(float((np.abs(a[0].astype(int) - b[0].astype(int)) > 1).mean()) for a, b in pairs)
     dep_d = max(float(np.abs(a[1] - b[1]).max()) for a, b in pairs)
-    dep_share = max(float((a[1] != b[1]).mean()) for a, b in pairs)
+    dep_share = max(float((~(np.abs(a[1] - b[1]) <= depth_atol)).mean()) for a, b in pairs)
     dropped = [(a[2], b[2]) for a, b in pairs]
     print(f"card vs CPU, {label} {cfg.render_width}^2 courtyard, 3 frames: max|d image|={img_d} "
           f"(share > 1 step {far:.5f}, bound {max_far}), max|d depth|={dep_d} "
@@ -1942,6 +2000,209 @@ def bands_phase(scene, profile: bool, card: str):
                 pixels_differing=worst_share), problems
 
 
+# The frame's profiling switches (render/frame.py), and those each timed frame
+# honours: the raster-only frame has no LPV.
+SWITCHES = ("debug_stub_raster", "debug_stub_resolve", "debug_resolve_gather_only",
+            "debug_stub_shadow_sample", "debug_stub_rsm", "debug_stub_lpv_apply")
+STUB_FRAMES = {"raster-only": SWITCHES[:4], "parity": SWITCHES}
+# Raster launches per unstubbed frame: raster-only = the main view and 2
+# cascades (shadow_update_budget=1); parity adds one RSM (lpv_update_budget=1).
+BASE_RASTERS = {"raster-only": 3, "parity": 4}
+
+
+def stub_rasters(frame: str, switch) -> int:
+    """Raster launches per frame with ``switch`` alone: the main view's stub
+    takes one away, and so does the RSM's on the parity frame."""
+    fewer = switch == "debug_stub_raster" or (frame == "parity" and switch == "debug_stub_rsm")
+    return BASE_RASTERS[frame] - fewer
+
+
+def stub_frame_configs(view):
+    """(frame, unstubbed config, view) of the two frames bench.py times."""
+    from androidrenderer_tpu_torch.config import parity_frame_config, raster_only_config
+
+    parity = parity_frame_config()
+    return (("raster-only", raster_only_config(), view), ("parity", parity, parity_view(parity)))
+
+
+def stubs_phase(scene, view, timed: bool, card: str):
+    """Phase 21: failed checks. Each frame, unstubbed and with each switch it
+    honours alone: 3 warm-up frames and a chain of 10, raster launches gated.
+    ``timed`` (--stubs): each timed as phase 4 with 2 chains of 10 and profiled
+    over 3 frames, in mirrored turns (unstubbed, each switch, each switch again
+    in reverse, unstubbed), with the deltas from the unstubbed frame."""
+    from androidrenderer_tpu_torch.config import RenderParams
+    from androidrenderer_tpu_torch.render import make_renderer
+
+    problems = []
+    for frame, base, v in stub_frame_configs(view):
+        switches = STUB_FRAMES[frame]
+        turns = (None, *switches, *reversed(switches), None) if timed else (None, *switches)
+        readings = {}
+        for switch in turns:
+            cfg = base.replace(**({switch: True} if switch else {}))
+            label = f"{frame} {switch or 'unstubbed'}"
+            ms, _, _, failed, out, temp = run_frames(
+                label, cfg, scene, v, False, {"rasterize": stub_rasters(frame, switch)},
+                chains=2 if timed else 1)
+            # A stub's image may be uniform (the gather-only resolve saturates
+            # it, as in the JAX frame); it must be finite.
+            problems += [f"{label}: {x}" for x in failed if switch is None or x != "image is uniform"]
+            if not timed:
+                continue
+            profile_frames(label, make_renderer(cfg), scene, v, RenderParams.default(), temp,
+                           stages=False)
+            readings.setdefault(switch, []).append(dict(PROFILES[label], ms=ms))
+        if not timed:
+            continue
+
+        def mean(switch, key):
+            return statistics.fmean(r[key] for r in readings[switch])
+
+        print(f"stub phase, {frame} unstubbed: {mean(None, 'ms'):.3f} ms/frame, device "
+              f"{mean(None, 'device_ms'):.3f} ms, {mean(None, 'kernels'):.0f} kernels per "
+              f"profiled frame, {BASE_RASTERS[frame]} raster launches per frame ({card})")
+        for switch in switches:
+            d = {k: mean(switch, k) - mean(None, k) for k in ("ms", "device_ms", "kernels")}
+            print(f"stub phase, {frame} {switch}: {mean(switch, 'ms'):.3f} ms/frame "
+                  f"({d['ms']:+.3f}), device {mean(switch, 'device_ms'):.3f} ms "
+                  f"({d['device_ms']:+.3f}), {mean(switch, 'kernels'):.0f} kernels "
+                  f"({d['kernels']:+.0f}), {stub_rasters(frame, switch)} raster launches per "
+                  f"frame; readings (ms, device ms) "
+                  f"{[(round(r['ms'], 3), round(r['device_ms'], 3)) for r in readings[switch]]}")
+    return problems
+
+
+def stub_card_vs_cpu():
+    """Phase 22: the 128^2 parity frame (192^2 output) with each switch alone,
+    card against CPU over 3 moving jittered frames, within phase 5's
+    thresholds; under the raster stub, whose depth is analytic, a depth
+    counts as differing beyond 4 ulps of 1 (the two devices' float32 sin)."""
+    from androidrenderer_tpu_torch.config import parity_frame_config
+
+    small = parity_frame_config(192, 192, 128, 128, shadow_cascade_resolution=128)
+    failed = []
+    for switch in SWITCHES:
+        atol = 2.4e-7 if switch == "debug_stub_raster" else 0.0
+        if not card_vs_cpu(f"parity {switch}", cfg=small.replace(**{switch: True}), moving=True,
+                           depth_atol=atol):
+            failed.append(f"the 128^2 parity frames with {switch} on the card and the CPU disagree")
+    return failed
+
+
+def goldens_phase(card: str):
+    """Phase 23: tools/make_goldens.py's six cases rendered on the card
+    (androidrenderer_tpu_torch/tools/golden_cases.py) against the committed
+    goldens: SSIM >= 0.98 with the goldens' 38 holes on the cornell view from
+    the golden (golden_cases.py says why), and the plain SSIM beside it."""
+    from androidrenderer_tpu_torch.tools import golden_cases
+
+    failed = []
+    for name in golden_cases.CASES:
+        t0 = time.perf_counter()
+        r = golden_cases.compare(name, "cuda")
+        print(f"golden {name} on the card: SSIM {r['ssim_holes_from_golden']:.5f} with the "
+              f"golden's {r['holes']} holes from the golden (plain {r['ssim']:.5f}; gate "
+              f"{golden_cases.MIN_SSIM}; {time.perf_counter() - t0:.1f} s; {card})")
+        want = 38 if name in golden_cases.CORNELL_CASES else 0
+        if not (r["ssim_holes_from_golden"] >= golden_cases.MIN_SSIM and r["holes"] == want):
+            failed.append(f"{name}: SSIM {r['ssim_holes_from_golden']:.5f}, {r['holes']} holes")
+    return failed
+
+
+def tree_frames(tree: Path) -> int:
+    """``--tree-frames DIR``: the unstubbed raster-only and parity frames of the
+    package in DIR (this tree's or another's, unpacked with git archive) on
+    the bench scene, 3 warm-up frames, 2 chains of 10 and 3 profiled frames
+    each; prints one JSON line of ms/frame, device ms and kernels per profiled
+    frame by frame."""
+    import torch
+
+    sys.path.insert(0, str(tree))
+    import androidrenderer_tpu_torch
+    from androidrenderer_tpu_torch.config import RenderParams
+    from androidrenderer_tpu_torch.render import make_renderer, temporal_state_for
+    from androidrenderer_tpu_torch.scene.procedural import courtyard_scene
+
+    if Path(androidrenderer_tpu_torch.__file__).resolve().parents[1] != tree.resolve():
+        return fail(f"androidrenderer_tpu_torch was not imported from {tree}")
+    scene, _ = courtyard_scene(column_rings=4, detail=13, curtains=True).build(
+        device="cuda", with_bvh=False)
+    result = {}
+    for frame, cfg, view in stub_frame_configs(bench_camera()):
+        renderer, params = make_renderer(cfg), RenderParams.default()
+        temp = temporal_state_for(cfg, device="cuda")
+        for _ in range(3):
+            out, temp = renderer(scene, view, params, temp)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                out, temp = renderer(scene, view, params, temp)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e2)
+        profile_frames(f"{tree.name} {frame}", renderer, scene, view, params, temp, stages=False)
+        result[frame] = dict(PROFILES[f"{tree.name} {frame}"], ms=statistics.median(times))
+    print(json.dumps(result))
+    return 0
+
+
+def parent_frames_phase(parent, card: str):
+    """Phase 24 (--parent-tree): failed checks. The unstubbed frames of this
+    tree and of ``parent`` (a tree unpacked by git archive) as --tree-frames
+    processes in turns (parent, this, this, parent); each frame must launch as
+    many kernels per profiled frame as the parent's, within the one kernel by
+    which a frame's count varies between runs, at device ms within 2% of the
+    parent's mean."""
+    readings, failed = {}, []
+    for which, tree in (("parent", parent), ("this", REPO), ("this", REPO), ("parent", parent)):
+        proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--tree-frames",
+                               str(tree)], capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            return [f"--tree-frames {tree} exited {proc.returncode}: "
+                    f"{proc.stderr.strip()[-2000:]}"]
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        readings.setdefault(which, []).append(r)
+        print(f"turns, {which} tree ({tree}): " + "; ".join(
+            f"{frame} {v['ms']:.3f} ms/frame, device {v['device_ms']:.3f} ms, "
+            f"{v['kernels']:.0f} kernels" for frame, v in r.items()))
+    for frame in BASE_RASTERS:
+        got = {which: ([round(r[frame]["kernels"]) for r in rs],
+                       [r[frame]["device_ms"] for r in rs]) for which, rs in readings.items()}
+        for which, (kernels, device) in got.items():
+            print(f"turns, {frame} frame, {which} tree: kernels per profiled frame {kernels}, "
+                  f"device ms {[round(x, 3) for x in device]}, ms/frame "
+                  f"{[round(r[frame]['ms'], 3) for r in readings[which]]} ({card})")
+        counts = got["parent"][0] + got["this"][0]
+        if max(counts) - min(counts) > 1:
+            failed.append(f"{frame} frame: kernels per profiled frame {got['this'][0]} against "
+                          f"the parent's {got['parent'][0]}")
+        ours, theirs = (statistics.fmean(got[w][1]) for w in ("this", "parent"))
+        if abs(ours - theirs) > 0.02 * theirs:
+            failed.append(f"{frame} frame: device {ours:.3f} ms against the parent's "
+                          f"{theirs:.3f} ms")
+    return failed
+
+
+def slice_phases(scene, view, parent_tree, timed: bool, card: str) -> int:
+    """Phases 21-24, each timed; 1 after printing what failed, else 0."""
+    phases = [
+        ("stub", lambda: stubs_phase(scene, view, timed, card)),
+        ("stub card vs CPU", stub_card_vs_cpu),
+        ("goldens", lambda: goldens_phase(card)),
+    ]
+    if parent_tree is not None:
+        phases.append(("parent frames", lambda: parent_frames_phase(parent_tree, card)))
+    for label, run in phases:
+        t0 = time.perf_counter()
+        problems = run()
+        print(f"{label} phase: {time.perf_counter() - t0:.1f} s")
+        if problems:
+            return fail(f"{label}: " + "; ".join(problems))
+    return 0
+
+
 def traversal_phases(scene, stats, view, profile: bool, card: str) -> int:
     """Phases 12-14 and 19 alone (--traversal): every traversal site, with its
     gates, and the four frames that trace; no results line."""
@@ -1964,6 +2225,8 @@ def main(argv) -> int:
 
     if not torch.cuda.is_available():
         return fail("torch.cuda.is_available() is false: this script runs on an NVIDIA card")
+    if "--tree-frames" in argv:
+        return tree_frames(Path(argv[argv.index("--tree-frames") + 1]))
     if not (REPO / "androidrenderer_tpu_torch" / "csrc" / "raster.cu").is_file():
         return fail(f"androidrenderer_tpu_torch/ is not beside {Path(__file__).name}")
     sys.path.insert(0, str(REPO))
@@ -2029,6 +2292,11 @@ def main(argv) -> int:
     profile = "--profile" in argv
     if "--traversal" in argv:
         return traversal_phases(scene, scene_stats, view, profile, f"{kind}; {smi}")
+    parent_tree = None
+    if "--parent-tree" in argv:
+        parent_tree = Path(argv[argv.index("--parent-tree") + 1]).resolve()
+    if "--stubs" in argv:
+        return slice_phases(scene, view, parent_tree, True, f"{kind}; {smi}")
     result, ok, cascade0 = kernel_checks(cfg, scene, view)
     if not ok:
         return fail("kernel and plain version disagree at the bench shapes")
@@ -2155,10 +2423,14 @@ def main(argv) -> int:
     if problems:
         return fail("bands: " + "; ".join(problems))
     print(f"bands phase: {time.perf_counter() - t0:.1f} s")
+
+    # 21-24. the profiling switches, the goldens, and with --parent-tree the parent's frames
+    if slice_phases(scene, view, parent_tree, False, f"{kind}; {smi}") != 0:
+        return 1
     del scene
     torch.cuda.empty_cache()
 
-    # 21. results
+    # 25. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 

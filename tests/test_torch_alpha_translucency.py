@@ -16,6 +16,9 @@ for its bitmaps (``pallas_interpret=True``); B runs the XLA branch with
 ``max_tris_per_tile`` above the peak bin count, which the test asserts.
 """
 
+from functools import partial
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,21 +166,25 @@ def courtyard():
 
 def _peak_bin_count(jscene, view, cfg):
     """The most triangles any 32x128 tile of the main view bins, over the opaque,
-    masked and blend sets the XLA branch rasterizes."""
-    mask = jax_frustum_cull(
-        jscene.tri_corner_pos, jnp.asarray(view.view), jnp.asarray(view.frustum),
-        view.z_near, jscene.tri_valid,
-    )
+    masked and blend sets the XLA branch rasterizes (one jitted count)."""
+    return int(_peak_bin_count_jit(jscene, jnp.asarray(view.view), jnp.asarray(view.frustum),
+                                   np.float32(view.z_near), jnp.asarray(view.view_proj),
+                                   cfg.max_tris_per_tile))
+
+
+@partial(jax.jit, static_argnums=5)
+def _peak_bin_count_jit(jscene, view_m, frustum, z_near, view_proj, cap):
+    mask = jax_frustum_cull(jscene.tri_corner_pos, view_m, frustum, z_near, jscene.tri_valid)
     setup = jax_setup.triangle_setup_corners(
-        jscene.tri_corner_pos, jnp.asarray(view.view_proj), N, N,
+        jscene.tri_corner_pos, view_proj, N, N,
         double_sided=jscene.tri_double_sided, tri_valid=mask,
     )
-    peak = 0
+    peak = jnp.int32(0)
     for sel in (jscene.tri_alpha_mode == 0, jscene.tri_alpha_mode == 1,
                 jscene.tri_alpha_mode == 2):
         bins = bin_triangles(setup._replace(valid=setup.valid & sel), N // 32, N // 128,
-                             32, 128, cfg.max_tris_per_tile)
-        peak = max(peak, int(np.asarray(bins.counts).max()))
+                             32, 128, cap)
+        peak = jnp.maximum(peak, bins.counts.max())
     return peak
 
 

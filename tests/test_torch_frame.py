@@ -209,10 +209,12 @@ def test_staggered_cascades_match(frames):
     state, fed the JAX frame's fitted cascades (its last frame's effective
     matrices: every cascade has been rastered by then, and the static camera
     refits the same matrices each frame). The matrices it caches equal the JAX
-    frame's; at steady state the cache equals the rebuild-all maps exactly; the
-    maps agree with the JAX frame's up to the canonical-setup rounding above
-    (measured: coverage differs on <= 0.32% of texels, median depth delta
-    <= 1.4e-3 where both cover)."""
+    frame's; at steady state the cache equals the maps of one update that
+    rebuilds every cascade exactly; the maps agree with the JAX frame's up to
+    the canonical-setup rounding above (measured: coverage differs on <= 0.32%
+    of texels, median depth delta <= 1.4e-3 where both cover), and so do the
+    maps of render_shadow_cascades, whose setups are made under each
+    cascade's own matrix."""
     scene = frames["scene"]
     cascades = _cascades(frames["jax"][-1].csm)
     state = temporal_state_for(port_config(), device="cpu")
@@ -230,10 +232,19 @@ def test_staggered_cascades_match(frames):
         both = (got > 0) & (want > 0)
         assert both[0].any()
         assert np.median(np.abs(got - want)[both]) <= 5e-3
+    state = temporal_state_for(port_config(), device="cpu")
+    rebuilt, _ = shadow.render_shadow_cascades_staggered(
+        scene.positions, scene.tri_indices, scene.tri_valid, cascades, N,
+        state.csm_packed, state.csm_matrices, 0, update_budget=len(mats) - 1, **kw,
+    )
+    assert torch.equal(rebuilt, packed)
     full = shadow.render_shadow_cascades(
         scene.positions, scene.tri_indices, scene.tri_valid, cascades, N, **kw
     )
-    assert torch.equal(shadow.pack_pcf_taps(full), packed)
+    got = _taps(shadow.pack_pcf_taps(full).numpy())
+    assert ((got > 0) != (want > 0)).mean() <= 0.005
+    both = (got > 0) & (want > 0)
+    assert np.median(np.abs(got - want)[both]) <= 5e-3
 
 
 def test_sample_csm_on_jax_cascades(frames):

@@ -20,6 +20,8 @@ tools/make_goldens.py:90-99 gives: walls on exact cell boundaries would flip
 whole layers of surfels between cells on a one-ULP position change.
 """
 
+from functools import partial
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -523,20 +525,27 @@ def _port_temporal(jt):
 
 def _peak_bins(jscene, view, cfg):
     """The most triangles a 32x128 tile of the main view bins, over the opaque
-    and masked sets the XLA branch rasterizes."""
+    and masked sets the XLA branch rasterizes (one jitted count, one compile
+    for every view)."""
+    return int(_peak_bins_jit(jscene, j(view.view), j(view.frustum), np.float32(view.z_near),
+                              j(view.view_proj), cfg.max_tris_per_tile))
+
+
+@partial(jax.jit, static_argnums=5)
+def _peak_bins_jit(jscene, view_m, frustum, z_near, view_proj, cap):
     from androidrenderer_tpu.ops.culling import frustum_cull_triangles
 
-    mask = frustum_cull_triangles(jscene.tri_corner_pos, j(view.view), j(view.frustum),
-                                  view.z_near, jscene.tri_valid)
+    mask = frustum_cull_triangles(jscene.tri_corner_pos, view_m, frustum, z_near,
+                                  jscene.tri_valid)
     setup = jax_setup.triangle_setup_corners(
-        jscene.tri_corner_pos, j(view.view_proj), N, N,
+        jscene.tri_corner_pos, view_proj, N, N,
         double_sided=jscene.tri_double_sided, tri_valid=mask,
     )
-    peak = 0
+    peak = jnp.int32(0)
     for sel in (jscene.tri_alpha_mode == 0, jscene.tri_alpha_mode == 1):
         bins = bin_triangles(setup._replace(valid=setup.valid & sel), N // 32, N // 128,
-                             32, 128, cfg.max_tris_per_tile)
-        peak = max(peak, int(np.asarray(bins.counts).max()))
+                             32, 128, cap)
+        peak = jnp.maximum(peak, bins.counts.max())
     return peak
 
 

@@ -8,9 +8,10 @@ overflows it (the truncation keeps each tile's first ``cap`` triangles).
 Depth and visibility are held to the raster contract of
 test_raster_bitmask.py:33-36 (depth rtol 1e-6, atol 1e-9; visibility differing
 only where depth does); interpolation to the port's unit tolerance, rtol 1e-5,
-atol 1e-6.
+atol 1e-6. The JAX side runs jitted, one compile per function and shape.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -37,6 +38,13 @@ from test_raster_binned import H, W, _setup_for
 torch.set_num_threads(1)
 
 TILE_H, TILE_W = 16, 128
+# One compile per function and static shape in place of one per operation.
+jax_bin = jax.jit(jax_binning.bin_triangles, static_argnums=(1, 2, 3, 4),
+                  static_argnames=("cap", "tile_row_offset"))
+jax_depth = jax.jit(jax_xla.rasterize_depth, static_argnums=(2, 3, 4, 5),
+                    static_argnames=("chunk", "row_offset"))
+jax_vis = jax.jit(jax_xla.rasterize_visibility, static_argnums=(3, 4),
+                  static_argnames=("chunk", "row_offset"))
 
 
 def to_torch(setup) -> TriangleSetup:
@@ -54,15 +62,15 @@ def test_bins_and_raster_match_jax(cap):
     verts, tris = random_scene(0, n_tris=50)
     setup = _setup_for(verts, tris, True)
     grid = (H // TILE_H, W // TILE_W, TILE_H, TILE_W)
-    jb = jax_binning.bin_triangles(setup, *grid, cap=cap)
+    jb = jax_bin(setup, *grid, cap=cap)
     tb = bin_triangles(to_torch(setup), *grid, cap=cap)
     np.testing.assert_array_equal(tb.counts.numpy(), np.asarray(jb.counts))
     np.testing.assert_array_equal(tb.lists.numpy(), np.asarray(jb.lists))
     overflow = int(tb.counts.max()) > cap
     assert overflow == (cap == 4)
 
-    depth_ref = np.asarray(jax_xla.rasterize_depth(setup, jb, H, W, TILE_H, TILE_W, chunk=32))
-    vis_ref = np.asarray(jax_xla.rasterize_visibility(
+    depth_ref = np.asarray(jax_depth(setup, jb, H, W, TILE_H, TILE_W, chunk=32))
+    vis_ref = np.asarray(jax_vis(
         setup, jb, jnp.asarray(depth_ref), TILE_H, TILE_W, chunk=32))
     depth = rasterize_depth(to_torch(setup), tb, H, W, TILE_H, TILE_W, chunk=32)
     vis = rasterize_visibility(to_torch(setup), tb, depth, TILE_H, TILE_W, chunk=32)
@@ -77,16 +85,16 @@ def test_band_with_row_offset_and_z_limit_matches_jax():
     setup = _setup_for(verts, tris, True)
     band_h, tile_row0 = H // 2, (H // 2) // TILE_H
     noise = np.random.default_rng(4).uniform(0.3, 1.0, (band_h, W)).astype(np.float32)
-    jb = jax_binning.bin_triangles(setup, band_h // TILE_H, W // TILE_W, TILE_H, TILE_W,
-                                   cap=128, tile_row_offset=tile_row0)
+    jb = jax_bin(setup, band_h // TILE_H, W // TILE_W, TILE_H, TILE_W, cap=128,
+                 tile_row_offset=tile_row0)
     kw = dict(chunk=32, row_offset=H // 2)
     tsetup = to_torch(setup)
     full = rasterize_depth(tsetup, bin_triangles(tsetup, H // TILE_H, 1, TILE_H, TILE_W, cap=128),
                            H, W, TILE_H, TILE_W, chunk=32).numpy()
     zl = np.where(full[H // 2:] > 0, full[H // 2:] * noise, np.inf).astype(np.float32)
-    depth_ref = np.asarray(jax_xla.rasterize_depth(
+    depth_ref = np.asarray(jax_depth(
         setup, jb, band_h, W, TILE_H, TILE_W, z_limit=jnp.asarray(zl), **kw))
-    vis_ref = np.asarray(jax_xla.rasterize_visibility(
+    vis_ref = np.asarray(jax_vis(
         setup, jb, jnp.asarray(depth_ref), TILE_H, TILE_W, z_limit=jnp.asarray(zl), **kw))
 
     tb = bin_triangles(tsetup, band_h // TILE_H, W // TILE_W, TILE_H, TILE_W, cap=128,
@@ -102,9 +110,9 @@ def test_band_with_row_offset_and_z_limit_matches_jax():
 def test_interpolation_matches_jax():
     verts, tris = random_scene(1, n_tris=50)
     setup = _setup_for(verts, tris, True)
-    bins = jax_binning.bin_triangles(setup, H // TILE_H, W // TILE_W, TILE_H, TILE_W, cap=128)
-    depth = jax_xla.rasterize_depth(setup, bins, H, W, TILE_H, TILE_W, chunk=32)
-    vis = np.array(jax_xla.rasterize_visibility(setup, bins, depth, TILE_H, TILE_W, chunk=32))
+    bins = jax_bin(setup, H // TILE_H, W // TILE_W, TILE_H, TILE_W, cap=128)
+    depth = jax_depth(setup, bins, H, W, TILE_H, TILE_W, chunk=32)
+    vis = np.array(jax_vis(setup, bins, depth, TILE_H, TILE_W, chunk=32))
     assert (vis >= 0).sum() > 100
     rng = np.random.default_rng(9)
     attrs = {"uv": rng.random((verts.shape[0], 2), dtype=np.float32),

@@ -1,8 +1,11 @@
 """The port's frame stages against the JAX package's, each fed identical inputs.
 
 Inputs are made with numpy from a seed (or baked by the shared numpy scene code)
-and handed to both sides. Float stages are held to rtol 1e-5, atol 1e-6 unless
-a comment states a measured reason. The staggered cascades and ``sample_csm``
+and handed to both sides. The JAX setup, sky and bloom run jitted (one compile
+per function in place of one per operation); the resolve runs op by op, since
+its jit rounds beyond the tolerance (it contracts the plane evaluation into
+FMAs). Float stages are held to rtol 1e-5, atol 1e-6 unless a comment states a
+measured reason. The staggered cascades and ``sample_csm``
 are compared inside test_torch_frame.py, where the JAX frame's own cascade
 data exists (an eager refit can flip texel snapping).
 """
@@ -83,7 +86,8 @@ def test_resolve_gbuffer(courtyard):
     jscene, scene = courtyard
     w, h = 128, 96
     vd = _camera(w, h)
-    js = jax_setup.triangle_setup_corners(
+    # One setup for both sides (jitted: one compile instead of one per op).
+    js = jax.jit(jax_setup.triangle_setup_corners, static_argnums=(2, 3))(
         jscene.tri_corner_pos, jnp.asarray(vd.view_proj), w, h,
         double_sided=jscene.tri_double_sided, tri_valid=jscene.tri_valid,
     )
@@ -110,7 +114,7 @@ def test_sky_background(courtyard):
     vd_up = _camera(w, h)._replace(inverse_view=np.linalg.inv(
         Camera(fov_degrees=75.0, aspect=w / h).view_matrix()).astype(np.float32))
     for v in (vd, vd_up):
-        js = jax_sky.sky_background(
+        js = jax.jit(jax_sky.sky_background, static_argnums=(5, 6))(
             jnp.asarray(v.inverse_view), v.projection[0, 0], v.projection[1, 1],
             jscene.sun_direction, jscene.sun_color, h, w,
         )
@@ -173,7 +177,7 @@ def test_bloom_chain_odd_sizes(shape, mips):
     rebuilds rather than assuming F.interpolate's."""
     rng = np.random.default_rng(3)
     img = rng.uniform(0, 4, shape + (3,)).astype(np.float32)
-    jb = jax_bloom.bloom_chain(jnp.asarray(img), mips)
+    jb = jax.jit(jax_bloom.bloom_chain, static_argnums=1)(jnp.asarray(img), mips)
     tb = bloom.bloom_chain(t(img), mips)
     close(tb, jb)
 
