@@ -5,18 +5,25 @@ gbuffer stage, phase/gbuffer_phase.cpp:27-98): one per-triangle row of
 attribute planes per pixel, perspective-correct interpolation as plane / s-plane,
 analytic UV derivatives for the LOD, the fused trilinear material fetch, TBN
 normal mapping, and the reference's channel conventions.
+
+On CUDA tensors ``resolve_gbuffer`` launches ``csrc/gbuffer.cu`` (built by
+``ops/cuda_build.py``), one thread per sample; on CPU tensors it runs
+``resolve_gbuffer_reference``, the plain PyTorch version, which the kernel
+equals bit for bit on the card. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
 
+from ctypes import c_float, c_int, c_longlong, c_void_p
 from typing import NamedTuple
 
 import torch
 
 from androidrenderer_tpu_torch.ops import texture as tex
+from androidrenderer_tpu_torch.ops.cuda_build import Library
 from androidrenderer_tpu_torch.ops.post import srgb_to_linear
 from androidrenderer_tpu_torch.ops.raster.setup import TriangleSetup
-from androidrenderer_tpu_torch.scene.material_storage import START_ALIGN
+from androidrenderer_tpu_torch.scene.material_storage import START_ALIGN, MaterialStorage
 from androidrenderer_tpu_torch.scene.scene import SceneArrays
 
 
@@ -62,7 +69,137 @@ def pack_attribute_planes(scene: SceneArrays, setup: TriangleSetup) -> torch.Ten
     return torch.cat(blocks, dim=1)
 
 
+LIBRARY = Library("gbuffer.cu", {
+    "gbuffer_launch": [c_void_p, c_void_p, c_void_p, c_longlong, c_int, c_int, c_void_p,
+                       c_longlong, c_void_p, c_longlong, c_float, c_int, *[c_void_p] * 7,
+                       c_void_p],
+})
+
+
+def _check(vis, depth, planes, pool) -> None:
+    """Raise on what csrc/gbuffer.cu does not take."""
+    dev = vis.device
+    for name, x in (("depth", depth), ("attr_planes", planes), ("scene.textures", pool)):
+        if x.device != dev:
+            raise ValueError(f"{name} is on {x.device}, vis on {dev}")
+    if vis.dtype != torch.int32:
+        raise TypeError(f"vis must be int32, got {vis.dtype}")
+    if depth.dtype != torch.float32 or depth.shape != vis.shape:
+        raise TypeError(f"depth must be float32 of vis' shape {tuple(vis.shape)}, got "
+                        f"{tuple(depth.shape)} {depth.dtype}")
+    nch = 3 * (ATTR_CHANNELS + 1 + CONST_CHANNELS)
+    if planes.dtype != torch.float32 or planes.dim() != 2 or planes.shape[1] != nch:
+        raise TypeError(f"attr_planes must be (N, {nch}) float32, got {tuple(planes.shape)} "
+                        f"{planes.dtype}")
+    row = MaterialStorage.POOL_CHANNELS
+    if pool.dtype != torch.uint8 or pool.dim() != 2 or pool.shape[1] != row:
+        raise TypeError(f"scene.textures must be (R, {row}) uint8, got {tuple(pool.shape)} "
+                        f"{pool.dtype}")
+    if not (vis.is_contiguous() and planes.is_contiguous() and pool.is_contiguous()):
+        raise ValueError("vis, attr_planes and scene.textures must be contiguous")
+    if pool.data_ptr() % 4:
+        raise ValueError("scene.textures must start on a 4-byte boundary")
+
+
+class ResolveCall(NamedTuple):
+    """A prepared kernel call: its outputs, and ``launch()``, which fills them."""
+
+    out: GBuffer
+    launch: object
+
+
+def prepare_resolve(scene: SceneArrays, vis: torch.Tensor, depth: torch.Tensor,
+                    attr_planes: torch.Tensor, mip_bias: float = 0.0, row_offset: int = 0,
+                    use_base_textures: bool = True, use_normal_maps: bool = True,
+                    use_mr_textures: bool = True, use_emission: bool = True,
+                    pixel_coords=None) -> ResolveCall:
+    """Check a kernel call's inputs and allocate its outputs (the kernel
+    allocates nothing). Launches nothing and counts nothing; ``launch()`` holds
+    every tensor it reads, so it may run after the caller has let them go."""
+    if vis.device.type != "cuda":
+        raise ValueError(f"the resolve kernel runs on cuda tensors, got {vis.device}")
+    pool = scene.textures
+    _check(vis, depth, attr_planes, pool)
+    if pixel_coords is None:
+        if vis.dim() != 2:
+            raise ValueError(f"without pixel_coords vis must be (H, W), got {tuple(vis.shape)}")
+        px = py = None
+        width = vis.shape[1]
+    else:
+        px, py = (torch.broadcast_to(torch.as_tensor(c, device=vis.device).to(torch.float32),
+                                     vis.shape).contiguous() for c in pixel_coords)
+        width = 0
+    shape, dev = tuple(vis.shape), vis.device
+
+    def planes(c):
+        return torch.empty(shape + (c,), dtype=torch.float32, device=dev)
+
+    out = GBuffer(base_color=planes(3), normal=planes(3), roughness=planes(1),
+                  metalness=planes(1), emission=planes(3), world_position=planes(3),
+                  depth=depth, valid=torch.empty(shape, dtype=torch.bool, device=dev))
+    flags = (use_base_textures * 1 | use_normal_maps * 2 | use_mr_textures * 4
+             | use_emission * 8)
+    fn = LIBRARY.load().gbuffer_launch
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    def launch():
+        with torch.cuda.device(dev):
+            err = fn(vis.data_ptr(), ptr(px), ptr(py), vis.numel(), width, int(row_offset),
+                     attr_planes.data_ptr(), attr_planes.shape[0], pool.data_ptr(),
+                     pool.shape[0], float(mip_bias), int(flags),
+                     *(x.data_ptr() for x in out[:6]), out.valid.data_ptr(),
+                     torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"gbuffer_launch failed with cudaError_t {err}")
+
+    return ResolveCall(out, launch)
+
+
 def resolve_gbuffer(
+    scene: SceneArrays,
+    setup: TriangleSetup,
+    vis: torch.Tensor,  # (H, W) int32
+    depth: torch.Tensor,  # (H, W) f32
+    mip_bias: float = 0.0,
+    row_offset: int = 0,  # band mode: the first frame row of vis
+    attr_planes: torch.Tensor | None = None,
+    use_base_textures: bool = True,
+    use_normal_maps: bool = True,
+    use_mr_textures: bool = True,
+    use_emission: bool = True,
+    pixel_coords=None,  # optional ((...,) px, (...,) py) matching vis' shape
+    debug_gather_only: bool = False,
+) -> GBuffer:
+    """Shade the visibility buffer: ``resolve_gbuffer_reference``'s function and
+    arguments. CUDA tensors launch csrc/gbuffer.cu once (counted in
+    ``resolve_gbuffer.launches``); CPU tensors, and ``debug_gather_only`` (the
+    profiling switch, which profiles the plain plane gather), run the plain
+    version. On the card ``vis``, ``attr_planes`` and ``scene.textures`` must be
+    contiguous; an id in ``vis`` past the last row of ``attr_planes``, which the
+    plain version refuses with an IndexError, shades as -1 there."""
+    flags = dict(use_base_textures=use_base_textures, use_normal_maps=use_normal_maps,
+                 use_mr_textures=use_mr_textures, use_emission=use_emission)
+    if vis.device.type == "cpu" or debug_gather_only:
+        return resolve_gbuffer_reference(
+            scene, setup, vis, depth, mip_bias=mip_bias, row_offset=row_offset,
+            attr_planes=attr_planes, pixel_coords=pixel_coords,
+            debug_gather_only=debug_gather_only, **flags,
+        )
+    if attr_planes is None:
+        attr_planes = pack_attribute_planes(scene, setup)
+    call = prepare_resolve(scene, vis, depth, attr_planes, mip_bias, row_offset,
+                           pixel_coords=pixel_coords, **flags)
+    call.launch()
+    resolve_gbuffer.launches += 1
+    return call.out
+
+
+resolve_gbuffer.launches = 0
+
+
+def resolve_gbuffer_reference(
     scene: SceneArrays,
     setup: TriangleSetup,
     vis: torch.Tensor,  # (H, W) int32

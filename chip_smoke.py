@@ -13,6 +13,8 @@
     python3 chip_smoke.py --traversal  # only the card, the builds and the traversal
                                      # phases (12-14, 19), with their gates; no results
                                      # line
+    python3 chip_smoke.py --gbuffer  # only the card, the builds and phase 25 (the
+                                     # gbuffer resolve kernel); no results line
     python3 chip_smoke.py --stubs    # only the card, the builds and phases 21-23, with
                                      # phase 21's switches timed and profiled in
                                      # mirrored turns; no results line
@@ -33,8 +35,9 @@ beside them also holds the record pack, the allocations and the host's enqueue.
 Phases, in order; any failure ends the run with a non-zero exit code:
 
 1. the card: torch's device name, and nvidia-smi's name and power limit;
-2. build csrc/raster.cu, csrc/gather.cu and csrc/traverse.cu for sm_90a, one
-   nvcc for each, all started together (seconds, and ptxas' register report);
+2. build csrc/raster.cu, csrc/gather.cu, csrc/traverse.cu and csrc/gbuffer.cu
+   for sm_90a, one nvcc for each, all started together (seconds, and ptxas'
+   register report);
    the traversal kernel's registers per thread and resident blocks per SM, for
    the frame's instantiations and the counting ones;
 3. the kernel against its plain PyTorch version at the main path's shapes on
@@ -196,8 +199,21 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    from the golden, and the plain SSIM, printed per case;
 24. with --parent-tree only: the unstubbed raster-only and parity frames of
    both trees in turns, kernels per profiled frame within one of the other
-   tree's and device ms within 2% of its mean;
-25. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
+   tree's and device ms within 2% of its mean (the other tree must resolve
+   the gbuffer as this one does: a tree from before csrc/gbuffer.cu launches
+   ~400 more kernels a resolve);
+25. the gbuffer resolve kernel (csrc/gbuffer.cu) against its plain version at
+   the main path's call shapes, bit-equal in every field and one launch a call:
+   the benchmark frame's three (default_frame_config at 1920x1088: the opaque
+   frame and the two translucent peel layers), the VRSAA frame's coarse grid
+   (1088x1920 samples of the 3840x2176 raster, through pixel_coords) and its
+   fine pass's (B, 3) samples (B the budget, 522,240 quads), and the sharded
+   parity frame's lower band (368x1280, row_offset 368); call ms (with the
+   plane pack, as the frame calls it), the pack's ms, kernel-only time, plain
+   ms and the bound (bytes: each sample's vis, coordinates and outputs, each
+   distinct plane and texel row once; operations: GBUFFER_OPS_PER_SAMPLE a
+   valid sample), printed per shape;
+26. one JSON line of kernel results (the eight TPU kernels: #1-#4 and #6-#8 of
    the raster family, #5 the gather, each with its call time ``ms``, its
    kernel-only time ``kernel_ms`` and its bound; #1 also at the RSM call site,
    ``rsm_*``, at the VRSAA main view, ``vrsaa_*``, and at the band sites,
@@ -205,15 +221,19 @@ Phases, in order; any failure ends the run with a non-zero exit code:
    the port-queue traversal kernel, at the shadow site with the other sites as
    ``rtao_*``, ``primary_*``, ``rtgi_*``, ``rtgi_shadow_*``, ``peel_*``,
    ``probe_*``, ``probe_shadow_*`` and the refit BVH's ``refit_shadow_*``, with
-   the dynamic phase's ``dynamic_*`` times), the card line, and the final JSON
-   line.
+   the dynamic phase's ``dynamic_*`` times; last the gbuffer kernel at the
+   opaque shape, with ``translucent_1_*``, ``translucent_2_*``,
+   ``vrsaa_coarse_*``, ``vrsaa_fine_*`` and ``band_*``, its launches those of
+   the frames), the card line, and the final JSON line.
 
 Launch counts are read per path (the frames of phases 4, 7, 8, 12-15, 19 and 21, the
 gather tool of phase 9, the entry-point calls of phase 10, the microbench of
 phase 11, each CLI run of phase 16, each rank's frames in phase 20): every count
 is set to 0 just before a path runs and read just after, so the launches of the
 comparisons never count; every path but phases 12-14's and 19's and the CLI's
-probe run must make no traversal launch.
+probe run must make no traversal launch. Every frame makes one gbuffer resolve
+launch, two under VRSAA (the coarse grid and the fine samples), and one more for
+each translucent layer; none with the resolve stubbed or gather-only.
 
 It needs torch with CUDA and the repository beside it; it imports no JAX.
 """
@@ -374,7 +394,8 @@ BENCH = {}
 
 # The kernels of csrc/*.cu, by name, for the profile's per-kernel times.
 HAND_KERNELS = ("prep_kernel", "scan_kernel", "raster_kernel", "resolve_kernel",
-                "gather_partial_kernel", "gather_finish_kernel", "traverse_kernel")
+                "gather_partial_kernel", "gather_finish_kernel", "traverse_kernel",
+                "gbuffer_kernel")
 
 # The card's peaks for the bound (NVIDIA's H100 SXM data sheet: HBM3 rate, and
 # float32 outside the tensor cores). The data sheet's 67 TFLOP/s counts a fused
@@ -648,7 +669,9 @@ def entry_point_checks(scene, view, width, height, cascade0, res):
 
 def entry_points():
     """Every kernel entry point by name: the raster family's, the design
-    studies' included, and the traversal's; each counts its own launches."""
+    studies' included, the traversal's and the gbuffer resolve's; each counts
+    its own launches."""
+    from androidrenderer_tpu_torch.ops.gbuffer import resolve_gbuffer
     from androidrenderer_tpu_torch.ops.raster import rasterize
     from androidrenderer_tpu_torch.ops.raster.raster_binned import rasterize_binned
     from androidrenderer_tpu_torch.ops.raster.raster_fused import (
@@ -662,7 +685,7 @@ def entry_points():
 
     return {f.__name__: f for f in (
         rasterize, rasterize_binned, rasterize_fused, rasterize_hybrid, rasterize_pallas,
-        rasterize_touch, rasterize_lanes, rasterize_subfold, trace_rays)}
+        rasterize_touch, rasterize_lanes, rasterize_subfold, trace_rays, resolve_gbuffer)}
 
 
 def gather_checks():
@@ -1090,7 +1113,7 @@ def parity_phase(scene, profile: bool, card: str):
     if not ok:
         return rsm, {}, ["the kernel and the plain version disagree at the RSM call site"]
     ms, launches, _, problems, out, temp = run_frames(
-        "parity", cfg, scene, view, profile, {"rasterize": 4})
+        "parity", cfg, scene, view, profile, {"rasterize": 4, "resolve_gbuffer": 1})
     problems += [x for x in [gi_changes_hdr("parity frame", cfg, scene, view, temp)] if x]
     if float(out.hdr.amax()) == float(out.hdr.amin()):
         problems.append("HDR is constant")
@@ -1255,7 +1278,8 @@ def rt_phase(scene, stats, view, profile: bool, card: str):
     if problems:
         return sites, {}, problems
     ms, launches, _, problems, out, _ = run_frames(
-        "frame RT", cfg, scene, view, profile, {"rasterize": 4, "trace_rays": 5})
+        "frame RT", cfg, scene, view, profile,
+        {"rasterize": 4, "trace_rays": 5, "resolve_gbuffer": 3})
     print(f"frame_RT_ms: {ms:.3f} ({card})")
     # Phase 5's bounds. Measured on an H100 (NVIDIA H100 80GB HBM3, 700 W), first
     # run: max |d u8| 0, no depth differing. The traversal is bit-equal on both
@@ -1325,8 +1349,10 @@ def rtgi_phase(scene, view, profile: bool, card: str):
         return sites, {}, problems
     # 1 shadow + 4 RTAO traces, then per GI bounce one closest-hit and one sun
     # trace (effects.rtgi, rtgi_num_bounces=1; the bitmap paths trace once
-    # each); the rasters of A less the cascades (occlusion 2, translucency 2).
-    per_frame = {"rasterize": 4, "trace_rays": 5 + 2 * cfg.rtgi_num_bounces}
+    # each); the rasters of A less the cascades (occlusion 2, translucency 2);
+    # A's resolves (the opaque frame, 2 translucent layers).
+    per_frame = {"rasterize": 4, "trace_rays": 5 + 2 * cfg.rtgi_num_bounces,
+                 "resolve_gbuffer": 3}
     ms, launches, _, problems, out, temp = run_frames("frame RTGI", cfg, scene, view, profile,
                                                       per_frame)
     print(f"frame_RTGI_ms: {ms:.3f} ({card})")
@@ -1383,10 +1409,12 @@ def probes_phase(scene, view, profile: bool, card: str):
     if problems:
         return sites, {}, problems
     # A's rasters (occlusion 2, translucency 2, cascade 0, one far cascade) and
-    # the probe update's two traces (every cascade's rays in one closest-hit
-    # trace, their sun rays in one any-hit trace).
+    # resolves (the opaque frame, 2 translucent layers), and the probe update's
+    # two traces (every cascade's rays in one closest-hit trace, their sun rays
+    # in one any-hit trace).
     ms, launches, _, problems, out, temp = run_frames(
-        "frame probes", cfg, scene, view, profile, {"rasterize": 6, "trace_rays": 2})
+        "frame probes", cfg, scene, view, profile,
+        {"rasterize": 6, "trace_rays": 2, "resolve_gbuffer": 3})
     print(f"frame_probes_ms: {ms:.3f} ({card})")
     problems += [x for x in [gi_changes_hdr("frame probes", cfg, scene, view, temp)] if x]
     # A smaller cache than the frame's: the plain walk of 409,600 rays per frame
@@ -1422,9 +1450,10 @@ def vrsaa_phase(scene, profile: bool, card: str):
         return site, {}, [f"the 2x main view: bit-equal={site['eq']}, covered {covered:.4f}"]
     # render/frame.py under VRSAA: _occlusion_raster's two phases at 3840x2176,
     # then _shadows' staggered cascades (cascade 0 and one far cascade with
-    # shadow_update_budget=1); no translucency, no traced switch.
+    # shadow_update_budget=1); the coarse grid's resolve and the fine samples';
+    # no translucency, no traced switch.
     ms, launches, _, problems, out, temp = run_frames(
-        "frame VRSAA", cfg, scene, view, profile, {"rasterize": 4})
+        "frame VRSAA", cfg, scene, view, profile, {"rasterize": 4, "resolve_gbuffer": 2})
     print(f"frame_vrsaa_ms: {ms:.3f} ({card})")
     # One more frame, recording the fine-quad mask the worklist compacts.
     seen = {}
@@ -1523,25 +1552,28 @@ def cli_phase(card: str):
     # (lpv_update_budget=0) rebuilds all 4 cascades' RSMs every frame: + 4; each
     # LPV visualizer rebuilds them once more (+ 4) and vpl renders one more RSM
     # (+ 1). The probe update traces twice per frame (probe rays, their sun
-    # rays). The glTF quad: 2 + 4.
+    # rays). The glTF quad: 2 + 4. One resolve per frame, two under VRSAA (the
+    # coarse grid and the fine samples).
     runs = (  # (label, PNG, arguments, launches per run)
         ("--aa taa --frames 3 --interpolate", "taa", big + [
             "--aa", "taa", "--frames", "3", "--orbit", "0.02", "--interpolate"],
-         {"rasterize": 3 * 6}),
+         {"rasterize": 3 * 6, "resolve_gbuffer": 3}),
         ("--aa vrsaa --frames 2", "vrsaa", big + ["--aa", "vrsaa", "--frames", "2"],
-         {"rasterize": 2 * 6}),
+         {"rasterize": 2 * 6, "resolve_gbuffer": 2 * 2}),
         ("--set r.GI.Mode=1 --set r.GI.LPV.Exposure=40 --visualize lpv-gv", "lpv-gv",
          big + ["--set", "r.GI.Mode=1", "--set", "r.GI.LPV.Exposure=40", "--visualize",
-                "lpv-gv"], {"rasterize": 10 + 4}),
+                "lpv-gv"], {"rasterize": 10 + 4, "resolve_gbuffer": 1}),
         ("--gi lpv --visualize lpv-radiance", "lpv-radiance",
-         big + ["--gi", "lpv", "--visualize", "lpv-radiance"], {"rasterize": 10 + 4}),
+         big + ["--gi", "lpv", "--visualize", "lpv-radiance"],
+         {"rasterize": 10 + 4, "resolve_gbuffer": 1}),
         ("--gi lpv --visualize vpl", "vpl", big + ["--gi", "lpv", "--visualize", "vpl"],
-         {"rasterize": 10 + 5}),
+         {"rasterize": 10 + 5, "resolve_gbuffer": 1}),
         ("--gi probes --visualize probes", "probes",
-         big + ["--gi", "probes", "--visualize", "probes"], {"rasterize": 6, "trace_rays": 2}),
+         big + ["--gi", "probes", "--visualize", "probes"],
+         {"rasterize": 6, "trace_rays": 2, "resolve_gbuffer": 1}),
         ("--set list", None, ["--set", "list"], {}),
         ("--scene <ETC1S + UASTC KTX2 glTF>", "gltf", ["--scene", str(gltf)] + size,
-         {"rasterize": 6}),
+         {"rasterize": 6, "resolve_gbuffer": 1}),
     )
     apps = []
 
@@ -1594,6 +1626,154 @@ def cli_phase(card: str):
     print(f"visualize on the TAA run's outputs: {', '.join(MODES[1:-1])} drawn; none and "
           f"overdraw raise ({card})")
     return totals, problems
+
+
+# Float operations of one valid sample of csrc/gbuffer.cu with the benchmark
+# frame's flags (base, normal and metal-rough textures; no emission), counted by
+# hand from the source: the plane head, uv and LOD 38; slot 0's footprint 31
+# and its 8 trilinear channels at 29 each; the shading without emission 180.
+GBUFFER_OPS_PER_SAMPLE = 38 + 31 + 8 * 29 + 180
+GBUFFER_SAMPLE_BYTES = 4 + 57  # vis in; the six planes and valid out
+PLANE_ROW_BYTES = 87 * 4
+POOL_ROW_BYTES = 117
+
+
+def gbuffer_phase(scene, view):
+    """Phase 25: (result dict, problems). The resolve kernel against the plain
+    version at the main path's call shapes, bit-equal in every field and one
+    launch a call: the benchmark frame's three (default_frame_config at
+    1920x1088: the opaque frame and the two translucent peel layers), VRSAA's
+    coarse grid and fine samples (3840x2176 geometry, through pixel_coords) and
+    the sharded parity frame's lower band (row_offset); call ms (with the plane
+    pack, as the frame calls it), kernel-only time, plain ms and the bound."""
+    import torch
+
+    from androidrenderer_tpu_torch.config import (
+        AAMode, default_frame_config, parity_frame_config,
+    )
+    from androidrenderer_tpu_torch.ops import texture as tex
+    from androidrenderer_tpu_torch.ops import vrsaa as vrsaa_ops
+    from androidrenderer_tpu_torch.ops.gbuffer import (
+        GBuffer, pack_attribute_planes, prepare_resolve, resolve_gbuffer,
+        resolve_gbuffer_reference,
+    )
+    from androidrenderer_tpu_torch.ops.raster import rasterize
+    from androidrenderer_tpu_torch.render.frame import main_view_setup
+    from androidrenderer_tpu_torch.tools.kernel_timing import kernel_only_ms
+
+    want_flags = dict(use_base_textures=True, use_normal_maps=True, use_mr_textures=True,
+                      use_emission=False)
+    cfg = default_frame_config(1920, 1088)
+    vcfg = default_frame_config(1920, 1088, aa_mode=AAMode.VRSAA, translucency=False).replace(
+        render_width=3840, render_height=2176)
+    pcfg = parity_frame_config()
+    for c in (cfg, vcfg, pcfg):
+        flags = {k: getattr(c, k) for k in want_flags}
+        if flags != want_flags:
+            return {}, [f"GBUFFER_OPS_PER_SAMPLE counts other flags than a frame's {flags}"]
+    dev = scene.positions.device
+    h, w = cfg.render_height, cfg.render_width
+    setup, opaque, grid = main_view_setup(scene, view, cfg)
+    depth, vis = rasterize(opaque, h, w, alpha_grid=grid)
+    blend = setup._replace(valid=setup.valid & (scene.tri_alpha_mode == 2))
+    d1, v1 = rasterize(blend, h, w)
+    d2, v2 = rasterize(blend, h, w, z_limit=torch.where(v1 >= 0, d1, float("inf")))
+    # VRSAA (render/frame.py): the coarse grid's samples at their supersampled
+    # coordinates, then the fine pass's (B, 3) samples of the worklist's quads.
+    # The worklist is budget-long whatever it holds; these quads are those with
+    # an id or depth edge (the frame adds the luminance-contrast ones).
+    vsetup, vopaque, vgrid = main_view_setup(scene, parity_view(vcfg), vcfg)
+    depth_ss, vis_ss = rasterize(vopaque, vcfg.render_height, vcfg.render_width,
+                                 alpha_grid=vgrid)
+    ch, cw = vcfg.render_height // 2, vcfg.render_width // 2
+    cvis, cdepth = vis_ss[::2, ::2].contiguous(), depth_ss[::2, ::2].contiguous()
+    cpx = (torch.arange(cw, dtype=torch.float32, device=dev) * 2.0)[None, :].expand(ch, cw)
+    cpy = (torch.arange(ch, dtype=torch.float32, device=dev) * 2.0)[:, None].expand(ch, cw)
+    budget = max(1, int(vcfg.vrsaa_budget * ch * cw))
+    qy, qx, _, _ = vrsaa_ops.fine_worklist(vrsaa_ops.detect_fine_quads(vis_ss, depth_ss), budget)
+    offs = ((0, 1), (1, 0), (1, 1))
+    pys = torch.stack([qy * 2 + dy for dy, _ in offs], dim=1)
+    pxs = torch.stack([qx * 2 + dx for _, dx in offs], dim=1)
+    flat = pys * (2 * cw) + pxs
+    fvis, fdepth = vis_ss.reshape(-1)[flat], depth_ss.reshape(-1)[flat]
+    # The sharded parity frame's lower band of 2 (tile_height=16: 368 rows).
+    psetup, popaque, pgrid = main_view_setup(scene, parity_view(pcfg), pcfg)
+    bh = pcfg.render_height // 2
+    bdepth, bvis = rasterize(popaque, bh, pcfg.render_width, alpha_grid=pgrid, row_offset=bh)
+    calls = (  # (label, setup, vis, depth, keywords)
+        ("opaque", setup, vis, depth, {}),
+        ("translucent_1", blend, v1, d1, {}),
+        ("translucent_2", blend, v2, d2, {}),
+        ("vrsaa_coarse", vsetup, cvis, cdepth, dict(pixel_coords=(cpx, cpy))),
+        ("vrsaa_fine", vsetup, fvis, fdepth,
+         dict(pixel_coords=(pxs.to(torch.float32), pys.to(torch.float32)))),
+        ("band", psetup, bvis, bdepth, dict(row_offset=bh)),
+    )
+    fetch = tex._fetch
+    sites, problems = {}, []
+    for label, st, v, d, kw in calls:
+        kw = dict(kw, **want_flags)
+        resolve_gbuffer.launches = 0
+        got = resolve_gbuffer(scene, st, v, d, **kw)
+        launches = resolve_gbuffer.launches
+        rows = []  # the plain version's texel rows, as it clamps them
+
+        def recording(pool, row):
+            rows.append(row.to(torch.int64).clamp(0, pool.shape[0] - 1))
+            return fetch(pool, row)
+
+        tex._fetch = recording
+        try:
+            want = resolve_gbuffer_reference(scene, st, v, d, **kw)
+        finally:
+            tex._fetch = fetch
+        torch.cuda.synchronize()
+        differ = {name: int((getattr(got, name).view(torch.int32)
+                             != getattr(want, name).view(torch.int32)).sum())
+                  for name in GBuffer._fields if name != "valid"}
+        differ["valid"] = int((got.valid != want.valid).sum())
+        del got, want
+        if any(differ.values()) or launches != 1:
+            problems.append(f"{label}: {launches} launches, values differing {differ}")
+        ms = cuda_ms(lambda: resolve_gbuffer(scene, st, v, d, **kw))
+        plain_ms = cuda_ms(lambda: resolve_gbuffer_reference(scene, st, v, d, **kw))
+        pack_ms = cuda_ms(lambda: pack_attribute_planes(scene, st))
+        call = prepare_resolve(scene, v, d, pack_attribute_planes(scene, st), **kw)
+        kernel_ms = kernel_only_ms(call.launch)
+        del call
+        # Bytes: each sample's vis, coordinates (pixel_coords) and outputs,
+        # each distinct plane row and texel row once; operations: the hand
+        # count per valid sample.
+        ok = v >= 0
+        n, valid = v.numel(), int(ok.sum())
+        tris = int(torch.unique(v[ok]).numel())
+        texels = int(torch.unique(torch.cat([r[ok] for r in rows])).numel()) if valid else 0
+        sample_bytes = GBUFFER_SAMPLE_BYTES + (8 if "pixel_coords" in kw else 0)
+        nbytes = n * sample_bytes + tris * PLANE_ROW_BYTES + texels * POOL_ROW_BYTES
+        all_bytes = n * sample_bytes + valid * (PLANE_ROW_BYTES + len(rows) * POOL_ROW_BYTES)
+        ops = valid * GBUFFER_OPS_PER_SAMPLE
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        sites[label] = dict(ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, pack_ms=pack_ms,
+                            bound_ms=bound_ms, bound_by=bound_by, samples=n, valid=valid)
+        print(f"resolve {label} {tuple(v.shape)}: {valid} of {n} samples valid, {tris} "
+              f"triangles, {texels} texel rows; bit-equal={not any(differ.values())} "
+              f"launches={launches}; call {ms:.3f} ms (pack {pack_ms:.3f}), kernel-only "
+              f"{kernel_ms * 1e3:.1f} us, plain {plain_ms:.3f} ms")
+        print(f"  resolve {label} bound {bound_ms * 1e3:.2f} us ({bound_by}: "
+              f"{nbytes / 1e6:.3f} MB = {bytes_ms * 1e3:.2f} us, {ops / 1e9:.3f} G ops = "
+              f"{ops_ms * 1e3:.2f} us); every row from device memory {all_bytes / 1e6:.3f} MB = "
+              f"{all_bytes / HBM_BYTES_PER_S * 1e6:.2f} us")
+    opq = sites.get("opaque", {})
+    keys = ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")
+    result = dict(
+        name="gbuffer", route="cuda", source="androidrenderer_tpu_torch/csrc/gbuffer.cu",
+        replaces=None, max_abs_err=0.0 if not problems else None,
+        **{k: opq.get(k) for k in keys},
+        library_ms=None,  # no PyTorch call resolves a gbuffer
+        **{f"{site}_{k}": r[k] for site, r in sites.items() if site != "opaque" for k in keys},
+    )
+    return result, problems
 
 
 def band_raster_phase(scene, view, cascade0, res):
@@ -1793,8 +1973,8 @@ def dynamic_phase(scene, render_scene, view, profile: bool, card: str):
     # (e) The RT frame with the update before each frame: 5 traversal launches
     # (the shadow rays and rtao_num_samples = 4 AO rays) and 4 raster launches
     # (occlusion phases 1 and 2, 2 translucent layers; RT shadows replace the
-    # cascades) per frame, as in phase 12; the update and the refit launch no
-    # kernel of csrc/ (PyTorch ops only).
+    # cascades) and 3 resolves per frame, as in phase 12; the update and the
+    # refit launch no kernel of csrc/ (PyTorch ops only).
     render = make_renderer(cfg)
     temp = temporal_state_for(cfg, device="cuda")
     for i in range(2):  # warm-up
@@ -1816,7 +1996,7 @@ def dynamic_phase(scene, render_scene, view, profile: bool, card: str):
           f"frames ({card}); launches per frame: "
           + ", ".join(f"{k} {v / frames:g}" for k, v in launches.items() if v))
     for name, n in launches.items():
-        want = {"rasterize": 4, "trace_rays": 5}.get(name, 0) * frames
+        want = {"rasterize": 4, "trace_rays": 5, "resolve_gbuffer": 3}.get(name, 0) * frames
         if n != want:
             problems.append(f"dynamic frame: {name} launches {n} != {want}")
     if not bool(torch.isfinite(out.hdr).all()) or int(out.image.amax()) == int(out.image.amin()):
@@ -1989,11 +2169,13 @@ def bands_phase(scene, profile: bool, card: str):
               f"({s['collectives_host_ms'] / s['wall']:.1%}), its device time "
               f"{s['collectives_device_ms']:.3f} ms of {s['busy_ms']:.3f} ms busy; launches per frame "
               f"{s['launches']} (expected rasterize {want}: main view band, "
-              f"{(cascades + 1 - s['rank']) // 2} of the frame's {cascades} cascades, the RSM); "
+              f"{(cascades + 1 - s['rank']) // 2} of the frame's {cascades} cascades, the RSM; "
+              f"resolve_gbuffer 1: the band); "
               f"peak device memory {s['peak_gib']:.2f} GiB")
         print_split(f"  rank {s['rank']}", s["wall"], s["busy_ms"], s["stages"])
-        if s["launches"] != {"rasterize": float(want)}:
-            problems.append(f"rank {s['rank']} launches {s['launches']} != rasterize {want}")
+        if s["launches"] != {"rasterize": float(want), "resolve_gbuffer": 1.0}:
+            problems.append(f"rank {s['rank']} launches {s['launches']} != rasterize {want}, "
+                            f"resolve_gbuffer 1")
     print(f"parity_2band_ms: {max(s['ms'] for s in stats):.3f}, single device "
           f"{single_ms:.3f} ms/frame ({card})")
     return dict(band_ms=max(s["ms"] for s in stats), single_ms=single_ms,
@@ -2015,6 +2197,12 @@ def stub_rasters(frame: str, switch) -> int:
     takes one away, and so does the RSM's on the parity frame."""
     fewer = switch == "debug_stub_raster" or (frame == "parity" and switch == "debug_stub_rsm")
     return BASE_RASTERS[frame] - fewer
+
+
+def stub_resolves(switch) -> int:
+    """Resolve kernel launches per frame with ``switch`` alone: one, but none
+    with the resolve stubbed or gather-only (the plain plane gather)."""
+    return int(switch not in ("debug_stub_resolve", "debug_resolve_gather_only"))
 
 
 def stub_frame_configs(view):
@@ -2043,7 +2231,8 @@ def stubs_phase(scene, view, timed: bool, card: str):
             cfg = base.replace(**({switch: True} if switch else {}))
             label = f"{frame} {switch or 'unstubbed'}"
             ms, _, _, failed, out, temp = run_frames(
-                label, cfg, scene, v, False, {"rasterize": stub_rasters(frame, switch)},
+                label, cfg, scene, v, False, {"rasterize": stub_rasters(frame, switch),
+                                              "resolve_gbuffer": stub_resolves(switch)},
                 chains=2 if timed else 1)
             # A stub's image may be uniform (the gather-only resolve saturates
             # it, as in the JAX frame); it must be finite.
@@ -2235,6 +2424,7 @@ def main(argv) -> int:
     from androidrenderer_tpu_torch import init_device
     from androidrenderer_tpu_torch.ops.cuda_build import Library, load_all
     from androidrenderer_tpu_torch.ops.gather import LIBRARY as GATHER_LIBRARY
+    from androidrenderer_tpu_torch.ops.gbuffer import LIBRARY as GBUFFER_LIBRARY
     from androidrenderer_tpu_torch.ops.raster.raster import LIBRARY
     from androidrenderer_tpu_torch.ops.rt.traverse import LIBRARY as TRAVERSE_LIBRARY
 
@@ -2268,7 +2458,7 @@ def main(argv) -> int:
                 print(f"the other tree's {name}.cu is this tree's: not timed twice")
             else:
                 PARENT[name] = Library(source, functions)
-    libraries = (LIBRARY, GATHER_LIBRARY, TRAVERSE_LIBRARY, *PARENT.values())
+    libraries = (LIBRARY, GATHER_LIBRARY, TRAVERSE_LIBRARY, GBUFFER_LIBRARY, *PARENT.values())
     load_all(*libraries)
     for lib in libraries:
         print(f"built {lib.source} for sm_90a in {lib.build_seconds:.1f} s")
@@ -2292,6 +2482,12 @@ def main(argv) -> int:
     profile = "--profile" in argv
     if "--traversal" in argv:
         return traversal_phases(scene, scene_stats, view, profile, f"{kind}; {smi}")
+    if "--gbuffer" in argv:
+        _, problems = gbuffer_phase(scene, view)
+        if problems:
+            return fail("gbuffer resolve: " + "; ".join(problems))
+        print(f"chip_smoke: the gbuffer phase passed ({kind}; {smi})")
+        return 0
     parent_tree = None
     if "--parent-tree" in argv:
         parent_tree = Path(argv[argv.index("--parent-tree") + 1]).resolve()
@@ -2303,7 +2499,7 @@ def main(argv) -> int:
 
     # 4. the raster-only frame
     ms, launches, frames, problems, _, _ = run_frames(
-        "raster-only", cfg, scene, view, profile, {"rasterize": 3})
+        "raster-only", cfg, scene, view, profile, {"rasterize": 3, "resolve_gbuffer": 1})
     if problems:
         return fail("raster-only frame: " + "; ".join(problems))
     path_launches = {"raster-only": launches}
@@ -2324,8 +2520,9 @@ def main(argv) -> int:
     from androidrenderer_tpu_torch.render import make_renderer
 
     for label, overrides, per_frame in (
-        ("A", {}, {"rasterize": 6}),
-        ("B", {"alpha_bitmap": False}, {"rasterize": 6, "rasterize_binned": 3}),
+        ("A", {}, {"rasterize": 6, "resolve_gbuffer": 3}),
+        ("B", {"alpha_bitmap": False},
+         {"rasterize": 6, "rasterize_binned": 3, "resolve_gbuffer": 3}),
     ):
         cfg_p = default_frame_config(cfg.render_width, cfg.render_height, **overrides)
         ms, launches, frames, problems, out, temp = run_frames(
@@ -2427,10 +2624,15 @@ def main(argv) -> int:
     # 21-24. the profiling switches, the goldens, and with --parent-tree the parent's frames
     if slice_phases(scene, view, parent_tree, False, f"{kind}; {smi}") != 0:
         return 1
+
+    # 25. the gbuffer resolve at the benchmark frame's call shapes
+    resolve, problems = gbuffer_phase(scene, view)
+    if problems:
+        return fail("gbuffer resolve: " + "; ".join(problems))
     del scene
     torch.cuda.empty_cache()
 
-    # 25. results
+    # 26. results
     def launched(*names):
         return sum(path[n] for path in path_launches.values() for n in names)
 
@@ -2499,6 +2701,7 @@ def main(argv) -> int:
             bound_by=r["bound_by"], library_ms=None, **extra,
         ))
     kernels.insert(4, gather)
+    kernels.append(dict(resolve, launches=launched("resolve_gbuffer")))
     shadow = rt_sites["shadow"]
     kernels.append(dict(
         name="traverse", route="cuda", source="androidrenderer_tpu_torch/csrc/traverse.cu",
