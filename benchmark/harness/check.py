@@ -20,9 +20,13 @@ frame k also counts the plain walks' work for the bounds (bounds.py).
 readings a limit is set from (benchmark/tests/readings.py): ``control``
 computes it with TF32 allowed in CUDA matmuls and convolutions, the precision
 below the float32 with TF32 off that the program states (``init_device``);
-``wide`` runs the à-trous filter, the bloom's resizes and the probes'
-convolutions in float64 (reference/plain/precision.py), as a program that
-reorders those float32 chains without losing precision would.
+``wide`` runs the à-trous filter, the bloom's resizes, the probes'
+convolutions, the LPV propagation, the LPV apply's fetch and SH evaluation
+(not its cascade selection, reference/plain/ops/lpv.py) and the TAAU
+resample's contractions in float64 (reference/plain/precision.py), as a
+program that reorders those float32 chains without losing precision would.
+``wide_selection`` is ``wide`` with the LPV apply's cascade selection in
+float64 too: a reading of the cascade margins, not of reordered sums.
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import torch
 from benchmark.harness import bounds
 from benchmark.harness.frames import make_config
 
-VARIANTS = (None, "control", "wide")
+VARIANTS = (None, "control", "wide", "wide_selection")
 
 
 def _diff(a: torch.Tensor, b: torch.Tensor) -> tuple[int, int, int]:
@@ -79,7 +83,8 @@ class Reference:
         try:
             if variant == "control":
                 torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
-            precision.WIDE = variant == "wide"
+            precision.WIDE = variant in ("wide", "wide_selection")
+            precision.WIDE_SELECTION = variant == "wide_selection"
             for f in range(max(wanted) + 1):
                 scene = self.scene
                 if walk.moved.size:
@@ -101,7 +106,7 @@ class Reference:
                 del out
         finally:
             ref_raster.RECORD = ref_traverse.RECORD = None
-            precision.WIDE = False
+            precision.WIDE = precision.WIDE_SELECTION = False
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
         return out_images, work
 

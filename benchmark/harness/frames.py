@@ -8,6 +8,7 @@ import enum
 
 import numpy as np
 
+from benchmark.harness.walk import Walk
 from benchmark.reference.courtyard import courtyard_scene
 
 
@@ -46,3 +47,17 @@ def rest_transforms(record) -> np.ndarray:
             t = args[2]
             out.append(np.eye(4, dtype=np.float32) if t is None else np.asarray(t, np.float32))
     return np.stack(out)
+
+
+def make_walk(cfg: dict, traffic: dict, seed: int, record) -> Walk:
+    """The walk of configuration ``cfg`` under ``traffic``: its camera takes
+    the output size and the render size of the configuration's RenderConfig
+    (the reference's copy), and the TAA jitter where ``aa_mode`` is TAA."""
+    from benchmark.reference.plain import config as ref_config
+
+    rc = make_config(ref_config, cfg)
+    cam = cfg["camera"]
+    return Walk(traffic, seed, rc.output_width, rc.output_height, cam["fov_degrees"],
+                cam["z_near"], record.primitive_meshes(), rest_transforms(record),
+                render_size=(rc.render_width, rc.render_height),
+                jitter=rc.aa_mode == ref_config.AAMode.TAA)

@@ -31,9 +31,9 @@ from torch.profiler import record_function
 
 from benchmark.harness import check
 from benchmark.harness.cell import ROOT, Cell
-from benchmark.harness.frames import make_config, rest_transforms, scene_record
+from benchmark.harness.frames import make_config, make_walk, scene_record
 from benchmark.harness.profile import Profile
-from benchmark.harness.walk import Walk, seed_rng
+from benchmark.harness.walk import seed_rng
 
 TRACE_DIR = ROOT / "build" / "bench"
 # Frames a traced run profiles and then times without the profiler, and the
@@ -139,9 +139,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
 
     cfg = cell.config
     record = scene_record(cfg)
-    rc, cam = cfg["render_config"], cfg["camera"]
-    walk = Walk(cell.traffic, seed, rc["width"], rc["height"], cam["fov_degrees"],
-                cam["z_near"], record.primitive_meshes(), rest_transforms(record))
+    walk = make_walk(cfg, cell.traffic, seed, record)
 
     t = time.perf_counter()
     rs = record.replay(RenderScene, Material)
@@ -151,11 +149,12 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
 
     t = time.perf_counter()
     if torch.device(device).type == "cuda":
+        from androidrenderer_tpu_torch.ops import gbuffer
         from androidrenderer_tpu_torch.ops.cuda_build import load_all
         from androidrenderer_tpu_torch.ops.raster import raster
         from androidrenderer_tpu_torch.ops.rt import traverse
 
-        load_all(raster.LIBRARY, traverse.LIBRARY)
+        load_all(raster.LIBRARY, traverse.LIBRARY, gbuffer.LIBRARY)
     config = make_config(port_config, cfg)
     render = make_renderer(config)
     if fault is not None:

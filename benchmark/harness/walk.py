@@ -20,6 +20,11 @@ each group move, and their phases. Every seed walks the same loop at the same
 speed and moves the same number of primitives of the same meshes, so the work
 per frame is the same set in another order. Frame 0 is the first warm-up
 frame; the window's frames follow on.
+
+The camera has the output's aspect and counts its pixels at the render size.
+With ``jitter`` (a frame with TAA) frame f carries the Halton jitter
+``taa_jitter(f)`` and the previous frame's ``taa_jitter(f - 1)`` (none before
+frame 0), the sequence the application's tick gives.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ import math
 
 import numpy as np
 
-from benchmark.reference.plain.camera import Camera
+from benchmark.reference.plain.camera import Camera, taa_jitter
 
 
 def seed_rng(seed: int, stream: int) -> np.random.Generator:
@@ -40,9 +45,14 @@ class Walk:
     """Views and primitive transforms of each frame of one traffic mix."""
 
     def __init__(self, traffic: dict, seed: int, width: int, height: int, fov_degrees: float,
-                 z_near: float, primitive_meshes=(), rest_transforms=None):
+                 z_near: float, primitive_meshes=(), rest_transforms=None, render_size=None,
+                 jitter: bool = False):
+        """``width`` x ``height``: the output; ``render_size``: (width, height)
+        rendered, by default the output's."""
         self.traffic = traffic
         self.width, self.height = width, height
+        self.render_size = (width, height) if render_size is None else tuple(render_size)
+        self.jitter = jitter
         self.fov_degrees, self.z_near = fov_degrees, z_near
         cx, cz = traffic["path"]["center_m"]
         ax, az = traffic["path"]["radii_m"]
@@ -86,16 +96,21 @@ class Walk:
 
     def _camera(self, f: int) -> Camera:
         cam = Camera(fov_degrees=self.fov_degrees, aspect=self.width / self.height,
-                     z_near=self.z_near, render_resolution=(self.width, self.height))
+                     z_near=self.z_near, render_resolution=self.render_size)
         cam.position, cam.pitch, cam.yaw = self._pose(f)
         return cam
 
     def view(self, f: int):
-        """Frame ``f``'s ViewData (numpy), its last frame's matrix latched."""
+        """Frame ``f``'s ViewData (numpy), its last frame's matrix and jitter
+        latched."""
         cam = self._camera(max(f - 1, 0))
         if f > 0:
+            if self.jitter:
+                cam.set_jitter(taa_jitter(f - 1))
             cam.end_frame()
             cam.position, cam.pitch, cam.yaw = self._pose(f)
+        if self.jitter:
+            cam.set_jitter(taa_jitter(f))
         return cam.view_data()
 
     def transforms(self, f: int) -> np.ndarray:

@@ -1,5 +1,5 @@
 # Frozen copy of androidrenderer_tpu_torch/camera.py at commit c15a27329e0a,
-# part of the benchmark's plain reference: imports renamed only.
+# part of the benchmark's plain reference: imports renamed; the flycam's moves left out.
 """Camera / SceneView — infinite reversed-Z perspective, jitter, frustum extraction.
 
 Re-creates the reference's ``SceneView`` (render/scene_view.cpp):
@@ -91,6 +91,24 @@ def flycam_basis(pitch: float, yaw: float) -> Tuple[np.ndarray, np.ndarray, np.n
     return forward, right, up
 
 
+def halton(index: int, base: int) -> float:
+    """Halton low-discrepancy sequence (upscaler.hpp:13-32 jitter source)."""
+    f = 1.0
+    r = 0.0
+    i = index
+    while i > 0:
+        f /= base
+        r += f * (i % base)
+        i //= base
+    return r
+
+
+def taa_jitter(frame_index: int, num_phases: int = 8) -> np.ndarray:
+    """Halton(2,3) jitter in [-0.5, 0.5] pixels."""
+    i = (frame_index % num_phases) + 1
+    return np.array([halton(i, 2) - 0.5, halton(i, 3) - 0.5], dtype=np.float32)
+
+
 class Camera:
     """Host-side flycam state machine (SceneView + Application flycam,
     application.cpp:143-163: move speed 2 m/s default)."""
@@ -115,6 +133,10 @@ class Camera:
         self.frame_count = 0
 
     # -- state mutation (host only) ------------------------------------------------
+    def set_jitter(self, jitter) -> None:
+        self._previous_jitter = self.jitter
+        self.jitter = np.asarray(jitter, dtype=np.float32)
+
     # -- matrices -------------------------------------------------------------------
     def view_matrix(self) -> np.ndarray:
         fwd, right, up = flycam_basis(self.pitch, self.yaw)

@@ -7,6 +7,11 @@ as float64 and rounds its float64 results back to float32: the same sums in
 another order and at a higher precision, as a program that fuses or reorders
 a float32 chain without losing precision would compute them. Off, the
 functions run as written.
+
+``WIDE_SELECTION`` set beside it also widens what ``WIDE`` leaves in float32
+on purpose: the LPV apply's cascade selection and cell coordinates
+(ops/lpv.py::apply_lpv), where a wall on the cells' lattice sits on a
+cascade's margin. Its readings show that margin; no limit is set from them.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import functools
 import torch
 
 WIDE = False
+WIDE_SELECTION = False
 
 
 def _cast(x, src, dst):

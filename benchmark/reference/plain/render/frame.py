@@ -1,7 +1,8 @@
 # Frozen copy of androidrenderer_tpu_torch/render/frame.py at commit c15a27329e0a,
 # part of the benchmark's plain reference: imports renamed, and only the paths of the
-# benchmark's frames kept (one device, no band, no VRSAA, TAA, SSAO, LPV, exact alpha
-# peel or profiling switches).
+# benchmark's frames kept: one device, no band, no VRSAA, exact alpha peel, 8-byte TAA
+# history or profiling switches. The SSAO, LPV and TAA stages are those of commit
+# dfc74ed377a9, where this file is as at c15a27329e0a, on one device.
 """The frame function — SceneRenderer::render() on one device.
 
 Phase sequence (the JAX package's render/frame.py, single device), as the
@@ -11,13 +12,16 @@ benchmark's frames run it:
     bitmaps [or two-phase HiZ occlusion: raster last frame's visible
     primitives, build the HiZ pyramid, re-test every sphere, raster the newly
     visible, merge] -> gbuffer resolve -> sky -> [staggered CSM + packed 2x2
-    PCF, or RT sun shadows: one jittered any-hit ray per pixel] -> [RTAO:
-    rtao_num_samples any-hit rays per pixel] -> [probe GI: the budgeted probe
-    update (one closest-hit and one sun trace for every cascade's probe rays),
-    half-rate sampling + upsample; or RTGI: one cosine ray per pixel and a sun
-    ray per hit per bounce, a-trous filter, temporal accumulation] -> sun BRDF
-    + GI * AO -> [translucency: peeled BLEND layers, back-to-front composite]
-    -> bloom -> Reinhard -> u8
+    PCF, or RT sun shadows: one jittered any-hit ray per pixel] -> [half-rate
+    SSAO + joint-bilateral 2x upsample, or RTAO: rtao_num_samples any-hit rays
+    per pixel] -> [LPV GI: staggered cascade rebuild (RSM on the proxy through
+    the plain raster -> VPLs -> SH inject -> propagate), half-rate apply +
+    upsample; or probe GI: the budgeted probe update (one closest-hit and one
+    sun trace for every cascade's probe rays), half-rate sampling + upsample;
+    or RTGI: one cosine ray per pixel and a sun ray per hit per bounce, a-trous
+    filter, temporal accumulation] -> sun BRDF + GI * AO -> [translucency:
+    peeled BLEND layers, back-to-front composite] -> [TAA, or TAAU to the
+    output resolution] -> bloom -> Reinhard -> u8
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from benchmark.reference.plain.config import (
 )
 from benchmark.reference.plain.ops import bloom as bloom_ops
 from benchmark.reference.plain.ops import culling, lighting, post, sky
+from benchmark.reference.plain.ops import lpv as lpv_ops
 from benchmark.reference.plain.ops import probes as probe_ops
 from benchmark.reference.plain.ops import shadow as shadow_ops
 from benchmark.reference.plain.ops import taa as taa_ops
@@ -45,12 +50,13 @@ from benchmark.reference.plain.ops.raster.masked import _sample_alpha, pack_alph
 from benchmark.reference.plain.ops.rt import effects as rt_effects
 from benchmark.reference.plain.ops.upsample import bilateral_upsample_2x
 from benchmark.reference.plain.render.temporal import TemporalState
+from benchmark.reference.plain.scene.proxy import swap_in_proxy
 from benchmark.reference.plain.scene.scene import SceneArrays
 
 
 class FrameOutputs(NamedTuple):
     image: torch.Tensor  # (H, W, 3) u8 display-ready
-    hdr: torch.Tensor  # (H, W, 3) f32 lit scene (pre-tonemap)
+    hdr: torch.Tensor  # (OH, OW, 3) f32 lit scene (pre-tonemap; output res after TAAU)
     depth: torch.Tensor  # (H, W) f32
     visibility: torch.Tensor  # (H, W) i32
     gbuffer: GBuffer
@@ -208,6 +214,67 @@ def _half_rate(config: RenderConfig, h: int, w: int) -> bool:
     return config.half_rate_gi and h % 2 == 0 and w % 2 == 0
 
 
+def _ssao(cam_pos, z_near, params, config, gbuf, depth):
+    """(H, W, 1) AO: the estimator on the half grid, reconstructed by the joint
+    bilateral 2x upsample (the JAX frame's SSAO block)."""
+    h, w = depth.shape
+    half = _half_rate(config, h, w)
+
+    def sub(a):
+        return a[::2, ::2] if half else a
+
+    d_h, n_h = sub(depth), sub(gbuf.normal)
+    fields = dict(world_position=sub(gbuf.world_position), normal=n_h, valid=sub(gbuf.valid),
+                  depth=d_h)
+    ao = lighting.ssao(gbuf._replace(**fields), cam_pos, z_near, radius=params.ssao_radius,
+                       bias=params.ssao_bias, intensity=params.ssao_intensity)
+    return bilateral_upsample_2x(ao, d_h, n_h, depth, gbuf.normal) if half else ao
+
+
+def _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth):
+    """(GI (H, W, 3), next temporal state): the LPV volumes rebuilt (one cascade
+    round-robin with ``lpv_update_budget``, else all), each cascade's RSM a
+    plain raster of the proxy mesh, then the apply on the half grid,
+    reconstructed by the joint bilateral 2x upsample and modulated by the
+    full-resolution base color."""
+    h, w = depth.shape
+    cam_forward = -inv_view[:3, 2]
+    # Scene-view depth surfels for the geometry volume (every 8th pixel).
+    surfels = (gbuf.world_position[::8, ::8].reshape(-1, 3),
+               gbuf.normal[::8, ::8].reshape(-1, 3), gbuf.valid[::8, ::8].reshape(-1))
+    # The RSMs rasterize the vertex-clustered proxy: their texels are meters wide.
+    gi_scene = swap_in_proxy(scene) if config.rsm_proxy else scene
+    args = (config.lpv_num_cascades, config.lpv_resolution, config.lpv_cell_size,
+            config.lpv_rsm_resolution, config.lpv_num_propagation_steps,
+            config.lpv_behind_camera_percent)
+    kw = dict(scene_view_surfels=surfels, use_base_textures=config.use_base_textures)
+    if 0 < config.lpv_update_budget < config.lpv_num_cascades:
+        want = (config.lpv_num_cascades, 3, 4) + (config.lpv_resolution,) * 3
+        if tuple(temporal.lpv.radiance.shape) != want:
+            raise ValueError(
+                f"TemporalState.lpv radiance {tuple(temporal.lpv.radiance.shape)} != {want}: "
+                "build the state with temporal_state_for(config)"
+            )
+        volumes = lpv_ops.update_lpv_staggered(
+            gi_scene, cam_pos, cam_forward, rasterize, temporal.lpv, temporal.frame_index,
+            *args, update_budget=config.lpv_update_budget, **kw,
+        )
+        temporal = temporal._replace(lpv=volumes)
+    else:
+        volumes = lpv_ops.build_lpv(gi_scene, cam_pos, cam_forward, rasterize, *args, **kw)
+    # float32 product, as the reference's parameters are float32 scalars.
+    exposure = float(np.float32(params.lpv_exposure) * np.float32(params.sun_exposure))
+    if not _half_rate(config, h, w):
+        gi = lpv_ops.apply_lpv(volumes, gbuf.world_position, gbuf.normal, gbuf.base_color,
+                               gbuf.valid, exposure)
+        return gi, temporal
+    wp_h, n_h = gbuf.world_position[::2, ::2], gbuf.normal[::2, ::2]
+    irr_h = lpv_ops.apply_lpv(volumes, wp_h, n_h, torch.ones_like(wp_h), gbuf.valid[::2, ::2],
+                              exposure)
+    irr = bilateral_upsample_2x(irr_h, depth[::2, ::2], n_h, depth, gbuf.normal)
+    return irr * gbuf.base_color, temporal
+
+
 def _probes(scene, cam_pos, params, temporal, config, gbuf, depth):
     """(GI (H, W, 3), next temporal state): the budgeted probe update (one
     closest-hit trace and one sun trace for every cascade's probe rays), then
@@ -266,18 +333,37 @@ def _rtgi(scene, view, params, temporal, config, gbuf, depth):
     return irr * gbuf.base_color, temporal._replace(rtgi_history=history, rtgi_valid=valid)
 
 
+def _taa(view, temporal, config, gbuf, lit):
+    """(resolved lit at output resolution, next temporal state): TAAU when the
+    frame renders below its output resolution, else TAA."""
+    dev = lit.device
+    oh, ow = config.output_height, config.output_width
+    if tuple(temporal.taa_history.shape) != (oh, ow, 3):
+        raise ValueError(
+            f"TemporalState.taa_history {tuple(temporal.taa_history.shape)} != {(oh, ow, 3)}: "
+            "build the state with temporal_state_for(config)"
+        )
+    mv = taa_ops.motion_vectors(gbuf.world_position, gbuf.valid, _f32(view.last_view_proj, dev),
+                                _f32(view.unjittered_view_proj, dev))
+    if (config.render_height, config.render_width) != (oh, ow):
+        lit, history = taa_ops.taau_resolve(lit, temporal.taa_history, temporal.taa_valid, mv,
+                                            view.jitter, oh, ow)
+    else:
+        lit, history = taa_ops.taa_resolve(lit, temporal.taa_history, temporal.taa_valid, mv)
+    valid = torch.ones((), dtype=torch.bool, device=dev)
+    return lit, temporal._replace(taa_history=history, taa_valid=valid)
+
+
 def _check_config(config: RenderConfig) -> None:
     """Raise ValueError for a switch whose path the reference does not carry."""
-    off = {"aa_mode": config.aa_mode != AAMode.OFF, "ao_mode=SSAO": config.ao_mode == AOMode.SSAO,
-           "gi_mode=LPV": config.gi_mode == GIMode.LPV}
+    off = {"aa_mode=VRSAA": config.aa_mode == AAMode.VRSAA, "taa_pack8": config.taa_pack8}
     off.update({name: True for name in ("debug_stub_raster", "debug_stub_resolve",
                                          "debug_stub_shadow_sample", "debug_resolve_gather_only",
                                          "debug_stub_rsm", "debug_stub_lpv_apply")
                 if getattr(config, name)})
     bad = [name for name, on in off.items() if on]
-    if bad or config.render_height != config.output_height \
-            or config.render_width != config.output_width:
-        raise ValueError(f"the reference renders the benchmark's frames only, not {bad or 'an upscale'}")
+    if bad:
+        raise ValueError(f"the reference renders the benchmark's frames only, not {bad}")
 
 
 @torch.no_grad()
@@ -348,7 +434,13 @@ def render_frame(
                 config.rtao_num_samples, params.rtao_max_distance, temporal.frame_index,
                 scene=scene, masked=config.alpha_masking,
             )
-    if config.gi_mode == GIMode.PROBES:
+    elif config.ao_mode == AOMode.SSAO:
+        with record_function("frame/ssao"):
+            ao = _ssao(cam_pos, z_near, params, config, gbuf, depth)
+    if config.gi_mode == GIMode.LPV:
+        with record_function("frame/lpv"):
+            gi, temporal = _lpv(scene, inv_view, cam_pos, params, temporal, config, gbuf, depth)
+    elif config.gi_mode == GIMode.PROBES:
         # DDGI-style budgeted probe cache (irradiance_cache.cpp:496-724).
         with record_function("frame/probes"):
             gi, temporal = _probes(scene, cam_pos, params, temporal, config, gbuf, depth)
@@ -363,6 +455,9 @@ def render_frame(
     if config.translucency:
         with record_function("frame/translucency"):
             lit = _translucency(scene, view, params, config, setup, depth, lit, flags)
+    if config.aa_mode == AAMode.TAA:
+        with record_function("frame/taa"):
+            lit, temporal = _taa(view, temporal, config, gbuf, lit)
     with record_function("frame/post"):
         display = taa_ops.upscale_bilinear(lit, config.output_height, config.output_width)
         bloom_tex = bloom_ops.bloom_chain(display, config.bloom_num_mips) if config.bloom else None

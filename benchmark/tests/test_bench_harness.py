@@ -14,9 +14,11 @@ import pytest
 
 from benchmark.harness import runner
 from benchmark.harness.cell import ROOT, find_cell, load_manifest, metric_reader
-from benchmark.harness.frames import rest_transforms, scene_record
+from benchmark.harness.frames import make_walk, rest_transforms, scene_record
 from benchmark.harness.profile import Profile
 from benchmark.harness.walk import Walk
+from benchmark.reference.plain.camera import Camera, taa_jitter
+from benchmark.tests.small import parity_config
 
 BENCH = ROOT / "benchmark"
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -93,6 +95,63 @@ def _walk(traffic: str, seed: int) -> Walk:
     record = scene_record(_small_textures(config))
     return Walk(json.loads((BENCH / "traffic" / f"{traffic}.json").read_text()), seed, 1920,
                 1088, 75.0, 0.05, record.primitive_meshes(), rest_transforms(record))
+
+
+def _view_as_before(walk: Walk, f: int, cfg: dict):
+    """Frame ``f``'s view as the walk built it before it read the render size
+    and the jitter from the configuration: the camera of the configuration
+    file's width and height, no jitter."""
+    rc, cam_cfg = cfg["render_config"], cfg["camera"]
+
+    def camera(g):
+        cam = Camera(fov_degrees=cam_cfg["fov_degrees"], aspect=rc["width"] / rc["height"],
+                     z_near=cam_cfg["z_near"], render_resolution=(rc["width"], rc["height"]))
+        cam.position, cam.pitch, cam.yaw = walk._pose(g)
+        return cam
+
+    cam = camera(max(f - 1, 0))
+    if f > 0:
+        cam.end_frame()
+        cam.position, cam.pitch, cam.yaw = walk._pose(f)
+    return cam.view_data()
+
+
+@pytest.mark.parametrize("name", ["courtyard_rtgi.walk", "courtyard_probes.walk",
+                                  "courtyard_rtgi.walk+dynamic16"])
+def test_walk_views_of_the_accepted_cells_are_as_before(name):
+    """The accepted cells render at their output size without TAA: the walk
+    built from their configuration gives the views it gave before, bit for bit."""
+    cell_name, _, traffic = name.partition("+")
+    cell = find_cell(load_manifest(), cell_name)
+    traffic = (json.loads((BENCH / "traffic" / f"{traffic}.json").read_text()) if traffic
+               else cell.traffic)
+    record = scene_record(_small_textures(cell.config))
+    for seed in (2 ** 31 + 11, 7, 4_000_000_123):
+        walk = make_walk(cell.config, traffic, seed, record)
+        for f in range(8):
+            new, old = walk.view(f), _view_as_before(walk, f, cell.config)
+            for a, b in zip(new, old):
+                assert a.dtype == b.dtype and np.array_equal(a, b), (seed, f)
+
+
+def test_parity_walk_takes_the_render_size_and_the_jitter():
+    """The parity frame's walk: the output's aspect, the render size's pixels,
+    and frame f jittered by taa_jitter(f) after taa_jitter(f - 1)."""
+    cfg = parity_config(1000)
+    record = scene_record(_small_textures(cfg))
+    walk = make_walk(cfg, json.loads((BENCH / "traffic/walk.json").read_text()), 5, record)
+    plain = _view_as_before(walk, 3, cfg)
+    for f in range(4):
+        v = walk.view(f)
+        assert np.array_equal(v.render_resolution, np.float32([1280, 736]))
+        assert np.array_equal(v.jitter, taa_jitter(f))
+        assert np.array_equal(v.previous_jitter,
+                              taa_jitter(f - 1) if f else np.zeros(2, np.float32))
+        assert v.projection[0, 2] == np.float32(taa_jitter(f)[0] * 2.0 / 1280.0)
+        assert v.projection[1, 1] / v.projection[0, 0] == pytest.approx(1920 / 1088, rel=1e-6)
+    # The jitter leaves the unjittered matrices and the pose alone.
+    assert np.array_equal(walk.view(3).unjittered_view_proj, plain.unjittered_view_proj)
+    assert np.array_equal(walk.view(3).last_view_proj, plain.last_view_proj)
 
 
 def _small_textures(config: dict) -> dict:
@@ -240,7 +299,7 @@ def test_reference_imports_nothing_of_the_program():
             assert not name.startswith("androidrenderer_tpu"), f"{path} imports {name}"
         head = path.read_text().splitlines()[:2]
         if path.parent != BENCH / "reference":
-            assert ("at commit c15a27329e0a" in head[0]
+            assert (any(f"at commit {c}" in head[0] for c in ("c15a27329e0a", "dfc74ed377a9"))
                     or head[0].startswith("# Written for the benchmark")), path
 
 
